@@ -3,24 +3,36 @@
 
     python3 chip_smoke.py
 
-Drives the port's forward LOD render path on the card and holds every
-hand-written kernel against its plain PyTorch version:
+Drives the port's forward LOD render path and its training path on the
+card and holds every hand-written kernel against its plain PyTorch version:
 
 1. build   — compile ``street_sparse_3dgs_tpu_torch/csrc/*.cu`` (one nvcc per
              source, in parallel) into the ignored ``build/kernels/``;
-2. kernels — K1 (padded blend), K3 (exact blend) and K5 (slab gather) on
-             small inputs against their plain versions;
-3. render  — the street scene (1M Gaussians, 4 views, 1920x1088) through
+2. kernels_small — K1 (padded blend), K2 (its backward), K3 (exact blend),
+             K4 (its backward) and K5 (slab gather) on small inputs against
+             their plain versions; K2 and K4 launched twice (bit-identical);
+3. grads_small — ``rasterize`` and its backward on a toy scene in the
+             padded and the exact+counts config, on the card (kernels) and
+             on the CPU (plain versions);
+4. render  — the street scene (1M Gaussians, 4 views, 1920x1088) through
              ``rasterize(method="pallas")`` in the production exact config
              (K3) and a padded config (K1); every image is compared with the
              plain path on the same inputs;
-4. hierarchy — a LOD hierarchy over the same rows, saved to ``.hier.npz``
+5. hierarchy — a LOD hierarchy over the same rows, saved to ``.hier.npz``
              and loaded back, rendered per view at tau in {0, 3, 6, 15}
              through ``pixel_limit -> select_cut -> render_cut_compact``;
-5. layers  — the stages of one street render timed apart, and a profile
+6. layers  — the stages of one street render timed apart, and a profile
              of it (device time by op, device idle share);
-6. the kernels line (launches counted on phases 3 and 4 only, error against
-             the plain version, times, bound) and the device line.
+7. train_street — 12 steps of ``make_train_step`` on the street scene in
+             the production config (K5, K3, K4), GT from the plain forward;
+8. train_bench — 20 steps in the bench.py config (512x512, 32k Gaussians,
+             padded, K = 384: K5, K1, K2);
+9. train_loop_toy — ``train_loop`` for 300 iterations with densification
+             on a 64x64 toy scene (K5, K1, K2);
+10. kernels_street — every kernel timed at the shapes of phases 4, 7, 8;
+11. the kernels line (launches counted on phases 4, 5, 7, 8 and 9 only,
+             error against the plain version, times, bound) and the device
+             line.
 
 Every phase prints one JSON line.  Any failure raises and exits nonzero.
 Without a CUDA card it exits 1 before printing any result.
@@ -28,7 +40,9 @@ Without a CUDA card it exits 1 before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -45,9 +59,15 @@ FP32_FLOPS = 67e12
 SFU_PER_SM_PER_CLK = 16          # special-function results per SM per clock
 FLOPS_PER_EVAL = 20              # f32 ops of one (slot, pixel) blend step
 SFU_PER_EVAL = 2                 # exp(power) and log1p(-alpha) per step
+# Backward step (blend_common.cuh blend_slot_bwd): exp(power), log1p(-alpha)
+# and exp(tlog_before); about 50 f32 operations with the ten partials.
+BWD_FLOPS_PER_EVAL = 50
+BWD_SFU_PER_EVAL = 3
 
 IMG_ATOL = 2e-5                  # tests/test_pallas_blend.py forward bar
 FLIP_SHARE = 1e-4                # pixels allowed to differ by a T=1e-4 flip
+GRAD_BAR = 3e-4                  # x max|g| (tests/test_pallas_blend.py:60)
+GRAD_RTOL = 2e-3
 
 STREET = dict(method="pallas", max_dup=2, tile_capacity=128, dup_overscan=32,
               dup_tails=((262144, 6), (16384, 24), (4096, 224)))
@@ -55,6 +75,10 @@ TAUS = (0.0, 3.0, 6.0, 15.0)
 TIMED_RUNS = 5
 DEVICE = "cuda"
 N_ROWS, N_VIEWS, WIDTH, HEIGHT = 1_000_000, 4, 1920, 1088
+# bench.py:71-76: 512x512, 32k Gaussians, padded pallas, K = 384.
+BENCH_N, BENCH_RES = 32768, 512
+SMALL_N, SMALL_W, SMALL_H = 2048, 256, 192
+STREET_STEPS, BENCH_STEPS, WARMUP_STEPS, LOOP_ITERS = 12, 20, 2, 300
 
 
 def emit(obj) -> None:
@@ -95,6 +119,29 @@ def timed_runs(fn, runs: int = TIMED_RUNS):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times), out
+
+
+def device_profile(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: wall ms, device busy ms
+    (the kernels' own device-side spans), idle share, and the host ops with
+    the most device self time."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        wall0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - wall0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    busy_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == cuda) / 1e3
+    top = sorted((e for e in prof.key_averages() if e.device_type != cuda),
+                 key=lambda e: e.self_device_time_total, reverse=True)[:15]
+    return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "top_device_self_ms": [[e.key, e.self_device_time_total / 1e3,
+                                    e.count] for e in top]}
 
 
 class Recorder:
@@ -144,16 +191,31 @@ def check_blend(name: str, cmp: dict, strict: bool) -> None:
                              f"over {IMG_ATOL} (limit {limit}): {cmp}")
 
 
-def blend_bound(live_slots: int, out_t: int, vec_reads: int, evals: int,
-                sfu_rate: float):
-    """(bound ms, bound_by) of a forward blend: bytes = live attrs (10 f32
-    each) + per-tile int32 metadata + [T, 8, 256] f32 output; operations =
-    (slot, pixel) steps actually walked, each two transcendentals on the
-    special-function units and FLOPS_PER_EVAL f32 operations."""
-    bytes_ = live_slots * 40 + vec_reads * 4 + out_t * 8 * 256 * 4
+def compare_grads(name: str, got: torch.Tensor, want: torch.Tensor,
+                  axis: int) -> dict:
+    """Kernel vs plain per-slot grads, channel on ``axis``: per channel the
+    largest |got - want| over max|want| of that channel; fails above
+    GRAD_BAR (JAX's gradient bar)."""
+    ch = got.shape[axis]
+    g = got.movedim(axis, -1).reshape(-1, ch).double()
+    w = want.movedim(axis, -1).reshape(-1, ch).double()
+    scale = w.abs().amax(dim=0).clamp_min(1e-30)
+    err = ((g - w).abs().amax(dim=0) / scale).tolist()
+    if max(err) > GRAD_BAR:
+        raise AssertionError(f"{name}: scaled grad error {err} over "
+                             f"{GRAD_BAR}")
+    return {"max_scaled_err": max(err), "per_channel": err,
+            "max_abs_err": float((g - w).abs().max())}
+
+
+def bound(bytes_: int, evals: int, sfu_per_eval: int, flops_per_eval: int,
+          sfu_rate: float):
+    """(bound ms, bound_by): the larger of bytes over HBM_BYTES_PER_S and
+    the (slot, pixel) steps walked at ``sfu_per_eval`` special-function
+    results (and ``flops_per_eval`` f32 operations) each."""
     t_bytes = bytes_ / HBM_BYTES_PER_S
-    t_ops = max(evals * SFU_PER_EVAL / sfu_rate,
-                evals * FLOPS_PER_EVAL / FP32_FLOPS)
+    t_ops = max(evals * sfu_per_eval / sfu_rate,
+                evals * flops_per_eval / FP32_FLOPS)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -165,6 +227,390 @@ def walked(out: torch.Tensor, live: torch.Tensor) -> int:
     return int(torch.minimum(nc + 1, live[:, None]).sum())
 
 
+def tile_pairs(vcounts, wt, last_v) -> torch.Tensor:
+    """Pairs of each real tile of an exact layout: its windows' counts."""
+    last = last_v.to(torch.int64)
+    csum = torch.cat([torch.zeros(1, dtype=torch.int64, device=last.device),
+                      torch.cumsum(vcounts.to(torch.int64), 0)])
+    return csum[last + 1] - csum[last - wt[last]]
+
+
+# ---- training harness -----------------------------------------------------
+
+def camera_batches(cams, gts, dev) -> list:
+    """One ``CameraBatch`` per view: the GT image, no alpha mask and no
+    depth supervision."""
+    from street_sparse_3dgs_tpu_torch.train.step import CameraBatch
+    out = []
+    for i, (cam, gt) in enumerate(zip(cams, gts)):
+        shape = (1, cam.height, cam.width)
+        out.append(CameraBatch(
+            camera=cam, gt_image=gt,
+            alpha_mask=torch.ones(shape, device=dev),
+            mono_invdepth=torch.zeros(shape, device=dev),
+            depth_mask=torch.zeros(shape, device=dev),
+            depth_reliable=torch.tensor(False, device=dev),
+            image_index=torch.tensor(i, device=dev)))
+    return out
+
+
+def plain_render(rows, cam, cfg, bg) -> torch.Tensor:
+    """[3, H, W] image in [0, 1] of the plain forward: projection, binning
+    and packing as ``rasterize`` does them, then ``blend_*_plain``, so that
+    no blend kernel makes the GT of the kernels' training."""
+    from street_sparse_3dgs_tpu_torch.ops import binning
+    from street_sparse_3dgs_tpu_torch.ops import cuda_blend as cb
+    from street_sparse_3dgs_tpu_torch.ops.preprocess import project_gaussians
+    with torch.no_grad():
+        proj = project_gaussians(*rows, cam, 3)
+        kw = dict(vis_capacity=cfg.vis_capacity, exact_extra=cfg.exact_extra,
+                  dup_overscan=cfg.dup_overscan)
+        if cfg.dup_tails:
+            kw["dup_tails"] = cfg.dup_tails
+        bins = binning.bin_gaussians(proj, cam.height, cam.width, cfg.max_dup,
+                                     cfg.tile_capacity, **kw)
+        exact = bins.t_of_v is not None
+        attrs = cb.pack_gather_attrs(
+            bins.gather, proj.mean2d, proj.conic, proj.color, proj.opacity,
+            proj.inv_depth, order=bins.order, rank=bins.rank,
+            pair_major=exact)
+        bg2 = bg.reshape(1, 3)
+        if exact:
+            flat = cb.blend_exact_plain(attrs, bins.vcounts, bins.wt,
+                                        bins.last_v, bg2, bins.tiles_x)
+        else:
+            flat = cb.blend_padded_plain(attrs, bins.counts.to(torch.int32),
+                                         bg2, bins.tiles_x)
+        img = cb._to_image(flat[:, :3], bins.tiles_x, bins.tiles_y,
+                           cam.height, cam.width)
+    return torch.clamp(img, 0.0, 1.0)
+
+
+def start_params(rows, seed: int, dev):
+    """The trainee's start: the scene's rows with colours (the SH DC band)
+    and opacities perturbed by a generator seeded with ``seed``; scales and
+    opacities turned back into raw parameters (log, inverse sigmoid)."""
+    from street_sparse_3dgs_tpu_torch.models.gaussians import (
+        GaussianParams, inverse_sigmoid)
+    means, scales, quats, opac, sh = rows
+    g = torch.Generator().manual_seed(seed)
+    dc = sh[:, :1] + 0.3 * torch.randn(tuple(sh[:, :1].shape),
+                                       generator=g).to(dev)
+    op = opac * (0.5 + torch.rand(tuple(opac.shape), generator=g).to(dev))
+    op = torch.clamp(op, 0.02, 0.98)
+    return GaussianParams(xyz=means.clone(), features_dc=dc,
+                          features_rest=sh[:, 1:].clone(),
+                          log_scales=torch.log(scales), quats=quats.clone(),
+                          opacity_raw=inverse_sigmoid(op)[:, None])
+
+
+def step_stages(step, state, batch, bg, bwd_name: str) -> dict:
+    """Device-time split of one training step by CUDA events: set-up,
+    forward (render + loss), the backward blend kernel, the slot->row
+    reduction, the rest of the backward, and what follows the grads (masks,
+    Adam, exposure Adam, densify statistics)."""
+    from street_sparse_3dgs_tpu_torch.ops import cuda_blend as cb
+
+    def ev():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    spans = {bwd_name: [], "slot_grads_to_rows": []}
+    originals = {k: getattr(cb, k) for k in spans}
+    marks = {}
+
+    def timed(key):
+        def wrapped(*args):
+            s = ev()
+            out = originals[key](*args)
+            spans[key].append((s, ev()))
+            return out
+        return wrapped
+
+    fwd, vag = step.forward, step.value_and_grad
+
+    def forward(*args):
+        marks["fwd0"] = ev()
+        out = fwd(*args)
+        marks["fwd1"] = ev()
+        return out
+
+    def value_and_grad(*args):
+        out = vag(*args)
+        marks["bwd1"] = ev()
+        return out
+
+    for k in spans:
+        setattr(cb, k, timed(k))
+    step.forward, step.value_and_grad = forward, value_and_grad
+    torch.cuda.synchronize()
+    marks["start"] = ev()
+    step(state, batch, bg=bg)
+    marks["end"] = ev()
+    torch.cuda.synchronize()
+    for k, fn in originals.items():
+        setattr(cb, k, fn)
+    del step.forward, step.value_and_grad
+
+    def el(a, b):
+        return a.elapsed_time(b)
+
+    kern = sum(el(s, e) for s, e in spans[bwd_name])
+    red = sum(el(s, e) for s, e in spans["slot_grads_to_rows"])
+    bwd = el(marks["fwd1"], marks["bwd1"])
+    return {"setup": el(marks["start"], marks["fwd0"]),
+            "forward": el(marks["fwd0"], marks["fwd1"]),
+            bwd_name: kern, "slot_grads_to_rows": red,
+            "backward_rest": bwd - kern - red,
+            "adam_and_stats": el(marks["bwd1"], marks["end"]),
+            "total": el(marks["start"], marks["end"])}
+
+
+def train_phase(phase: str, rows, cams, pipe, n_steps: int,
+                spatial_lr_scale: float, dev, bwd_name: str,
+                exact_counts: bool) -> dict:
+    """``n_steps`` of ``make_train_step`` round-robin over ``cams`` from a
+    perturbed start towards GT images of the plain forward, launches
+    counted; then (uncounted) the stage split, the device idle share of one
+    profiled step and two backwards of view 0 compared bit for bit.  Fails
+    unless every loss is finite and the mean loss of the last 4 steps is
+    below that of the first 4 (and, in exact counts mode, no step
+    overflowed or skipped its update)."""
+    from street_sparse_3dgs_tpu_torch import native
+    from street_sparse_3dgs_tpu_torch.config import OptimizationConfig
+    from street_sparse_3dgs_tpu_torch.models.gaussians import GaussianMeta
+    from street_sparse_3dgs_tpu_torch.ops import cuda_blend as cb
+    from street_sparse_3dgs_tpu_torch.train.step import (init_state,
+                                                         make_train_step,
+                                                         raster_config)
+    t0 = time.perf_counter()
+    bg = torch.zeros(3, device=dev)
+    rcfg = raster_config(pipe)
+    gts = [plain_render(rows, cam, rcfg, bg) for cam in cams]
+    torch.cuda.synchronize()
+    gt_s = time.perf_counter() - t0
+    batches = camera_batches(cams, gts, dev)
+    params = start_params(rows, 1, dev)
+    n = params.xyz.shape[0]
+    state = init_state(params, torch.ones(n, dtype=torch.bool, device=dev),
+                       len(cams))
+    step = make_train_step(GaussianMeta(sh_degree=3, capacity=n),
+                           OptimizationConfig(), pipe, spatial_lr_scale,
+                           sh_degree_schedule=False, random_background=False)
+    if torch.backends.cudnn.allow_tf32 or \
+            torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError(f"{phase}: the training entry left TF32 on")
+
+    native.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, auxs = [], []
+    for i in range(n_steps):
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        state, aux = step(state, batches[i % len(batches)], bg=bg)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - s0) * 1e3)
+        auxs.append(aux)
+    launches = dict(native.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    for name in ("slab_gather", bwd_name, bwd_name.replace("_bwd", "")):
+        if launches[name] == 0:
+            raise AssertionError(f"{phase}: the training path never "
+                                 f"launched {name}")
+
+    def per_step(key):
+        return [int(a[key]) for a in auxs] if key in auxs[0] else None
+
+    losses = [float(a["loss"]) for a in auxs]
+    skipped, tile_of = per_step("update_skipped"), per_step("tile_overflow")
+    first, last = statistics.mean(losses[:4]), statistics.mean(losses[-4:])
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{phase}: non-finite loss {losses}")
+    if not last < first:
+        raise AssertionError(f"{phase}: loss did not fall ({first} -> "
+                             f"{last}): {losses}")
+    if exact_counts and (any(skipped) or any(tile_of)):
+        raise AssertionError(f"{phase}: update_skipped {skipped}, "
+                             f"tile_overflow {tile_of}")
+
+    stages = step_stages(step, state, batches[0], bg, bwd_name)
+    prof = device_profile(lambda: step(state, batches[0], bg=bg))
+    with Recorder(cb, bwd_name) as kb, \
+            Recorder(cb, "slot_grads_to_rows") as red:
+        step(state, batches[0], bg=bg)
+        step(state, batches[0], bg=bg)
+    torch.cuda.synchronize()
+    emit({"phase": phase, "seconds": time.perf_counter() - t0,
+          "gt_seconds": gt_s, "rows": n, "views": len(cams),
+          "width": cams[0].width, "height": cams[0].height,
+          "config": {k: v for k, v in vars(pipe).items()},
+          "spatial_lr_scale": spatial_lr_scale, "steps": n_steps,
+          "step_ms": step_ms,
+          "step_ms_median": statistics.median(step_ms[WARMUP_STEPS:]),
+          "losses": losses, "loss_first4": first, "loss_last4": last,
+          "update_skipped": skipped, "tile_overflow": tile_of,
+          "dup_overflow": per_step("dup_overflow"),
+          "n_visible": per_step("n_visible"),
+          "peak_memory_bytes": peak, "launches": launches,
+          "stage_ms": stages, **prof,
+          "bwd_kernel_bit_identical": torch.equal(kb.calls[0][1],
+                                                  kb.calls[1][1]),
+          "slot_to_row_grads_bit_identical": torch.equal(red.calls[0][1],
+                                                         red.calls[1][1])})
+    # The saved attrs require grad: detached, so the plain version timed
+    # on them later builds no autograd graph.
+    args, out = kb.calls[0]
+    args = tuple(x.detach() if isinstance(x, torch.Tensor) else x
+                 for x in args)
+    return {"args": args, "out": out, "launches": launches}
+
+
+def train_loop_toy(dev) -> dict:
+    """The port's ``train_loop`` on the GT and init of
+    tests/test_train.py:313-361 (a 64x64, 200-Gaussian toy scene, oracle GT,
+    a noisy point cloud) through the padded kernels, with densification.
+    Fails unless the loss EMA (0.97) ends below 0.75x its value at
+    iteration 20."""
+    from street_sparse_3dgs_tpu_torch import native
+    from street_sparse_3dgs_tpu_torch.config import (ModelConfig,
+                                                     OptimizationConfig,
+                                                     PipelineConfig)
+    from street_sparse_3dgs_tpu_torch.data.toy import make_toy_scene
+    from street_sparse_3dgs_tpu_torch.models.gaussians import create_from_pcd
+    from street_sparse_3dgs_tpu_torch.ops.rasterize import (RasterConfig,
+                                                            rasterize)
+    from street_sparse_3dgs_tpu_torch.train.loop import LoopHooks, train_loop
+    from street_sparse_3dgs_tpu_torch.train.step import init_state
+    t0 = time.perf_counter()
+    scene = make_toy_scene(seed=2, n=200, n_cameras=3, width=64, height=64,
+                           device=dev)
+    rows = (scene.means3d, scene.scales, scene.quats, scene.opacities,
+            scene.sh_coeffs)
+    gts = [torch.clamp(rasterize(*rows, c, 3, torch.zeros(3, device=dev),
+                                 RasterConfig(method="oracle"))["render"],
+                       0.0, 1.0) for c in scene.cameras]
+    g = torch.Generator().manual_seed(0)
+    pts = scene.means3d + 0.02 * torch.randn((200, 3), generator=g).to(dev)
+    params, active, meta = create_from_pcd(
+        pts, torch.full((200, 3), 0.5, device=dev), capacity=256)
+    state = init_state(params, active, n_images=3)
+    opt = OptimizationConfig(
+        iterations=LOOP_ITERS, densification_interval=50,
+        densify_from_iter=50, densify_until_iter=260,
+        opacity_reset_interval=10_000, densify_grad_threshold=2e-4)
+    pipe = PipelineConfig(raster_method="pallas", tile_capacity=128,
+                          max_dup=32)
+    rounds = []
+    native.reset_launches()
+    # The loop's progress lines go to stderr: stdout holds the JSON lines.
+    with contextlib.redirect_stdout(sys.stderr):
+        state, meta, stats = train_loop(
+            state, meta, camera_batches(scene.cameras, gts, dev), opt, pipe,
+            ModelConfig(), cameras_extent=3.0, spatial_lr_scale=1.0,
+            clamp_fraction=1.0, rng_seed=0,
+            hooks=LoopHooks(on_densify=lambda it, n: rounds.append([it, n])))
+    torch.cuda.synchronize()
+    launches = dict(native.LAUNCHES)
+    for name in ("slab_gather", "blend_padded", "blend_padded_bwd"):
+        if launches[name] == 0:
+            raise AssertionError(f"train_loop_toy never launched {name}")
+    ema, ema20 = None, None
+    for i, x in enumerate(stats["losses"]):
+        ema = x if ema is None else 0.97 * ema + 0.03 * x
+        if i == 19:
+            ema20 = ema
+    if not (len(stats["losses"]) == LOOP_ITERS and ema < 0.75 * ema20):
+        raise AssertionError(f"train_loop_toy: loss EMA {ema20} -> {ema} "
+                             f"(bar 0.75x) over {len(stats['losses'])} "
+                             "iterations")
+    emit({"phase": "train_loop_toy", "seconds": time.perf_counter() - t0,
+          "iterations": LOOP_ITERS, "loss_ema_at_20": ema20,
+          "loss_ema_final": ema, "ema_ratio": ema / ema20,
+          "densify_rounds": rounds, "capacity": meta.capacity,
+          "capacity_growths": stats["overflows"],
+          "tile_overflow": stats["tile_overflow"],
+          "dup_overflow": stats["dup_overflow"], "launches": launches})
+    return launches
+
+
+def grads_small(dev) -> dict:
+    """``rasterize`` and its backward on a toy scene (SMALL_N Gaussians,
+    SMALL_W x SMALL_H) on the card (kernels) and on the CPU (plain
+    versions): grads of the rows and bg within GRAD_BAR * max|g| +
+    GRAD_RTOL * |g| of the CPU's, in the padded and the exact+counts
+    config."""
+    from street_sparse_3dgs_tpu_torch.data.toy import make_toy_scene
+    from street_sparse_3dgs_tpu_torch.ops.rasterize import (RasterConfig,
+                                                            rasterize)
+    cfgs = {"padded": RasterConfig(method="pallas", max_dup=32,
+                                   tile_capacity=256),
+            "exact_counts": RasterConfig(method="pallas", max_dup=32,
+                                         tile_capacity=128, exact_extra=256,
+                                         grad_reduce="counts")}
+    names = ("means3d", "scales", "quats", "opacities", "sh", "bg")
+    res = {}
+    for cname, cfg in cfgs.items():
+        grads, overflow = [], []
+        for d in (dev, torch.device("cpu")):
+            s = make_toy_scene(seed=0, n=SMALL_N, n_cameras=1, width=SMALL_W,
+                               height=SMALL_H, device=d)
+            leaves = [x.clone().requires_grad_(True) for x in (
+                s.means3d, s.scales, s.quats, s.opacities, s.sh_coeffs,
+                torch.tensor([0.2, 0.1, 0.3], device=d))]
+            out = rasterize(*leaves[:5], s.cameras[0], 3, leaves[5], cfg)
+            loss = (torch.mean(out["render"] ** 2)
+                    + 0.3 * torch.mean(out["depth"])
+                    + 0.1 * torch.mean(out["alpha"] ** 2))
+            loss.backward()
+            grads.append([x.grad.cpu().double() for x in leaves])
+            overflow.append(int(out["tile_overflow"]))
+        per = {}
+        for name, got, want in zip(names, *grads):
+            scale = float(want.abs().max())
+            diff = (got - want).abs()
+            outside = int((diff > GRAD_BAR * scale
+                           + GRAD_RTOL * want.abs()).sum())
+            per[name] = {"max_scaled_err": float(diff.max()) / scale,
+                         "outside_bar": outside}
+            if outside or scale == 0.0:
+                raise AssertionError(f"grads_small {cname} {name}: {outside} "
+                                     f"elements outside the bar, max|g| "
+                                     f"{scale}: {per[name]}")
+        if cfg.exact_extra and any(overflow):
+            raise AssertionError(f"grads_small {cname}: tile_overflow "
+                                 f"{overflow}")
+        res[cname] = {"grads": per, "tile_overflow": overflow}
+    return res
+
+
+def bwd_bound(args, exact: bool, sfu_rate: float):
+    """(bound ms, bound_by, live slots, steps) of a backward blend call:
+    bytes = live attrs (10 f32 each) + per-tile int32 metadata + the rows
+    the kernel reads of saved (log T, n_contrib) and of the cotangent (R,
+    G, B, invdepth, alpha) + the grads it writes; steps = each pixel's
+    slots below its n_contrib."""
+    if exact:
+        attrs, vcounts, wt, last_v, _, saved = args[:6]
+        per_tile = tile_pairs(vcounts, wt, last_v)
+        windows = int((wt.to(torch.int64)[last_v.to(torch.int64)] + 1).sum())
+        out_bytes = windows * attrs.shape[1] * 10 * 4
+        vec_reads = 2 * vcounts.shape[0] + last_v.shape[0]
+    else:
+        attrs, counts, bg, saved = args[:4]
+        per_tile = torch.clamp(counts.to(torch.int64), max=attrs.shape[2])
+        out_bytes = attrs.numel() * 4
+        vec_reads = counts.shape[0] + bg.numel()
+    t = saved.shape[0]
+    live = int(per_tile.sum())
+    evals = int(torch.minimum(saved[:, 6].to(torch.int64),
+                              per_tile[:, None]).sum())
+    bytes_ = live * 40 + vec_reads * 4 + t * 7 * 256 * 4 + out_bytes
+    ms, by = bound(bytes_, evals, BWD_SFU_PER_EVAL, BWD_FLOPS_PER_EVAL,
+                   sfu_rate)
+    return ms, by, live, evals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -172,7 +618,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from street_sparse_3dgs_tpu_torch import native
-    from street_sparse_3dgs_tpu_torch.data.toy import make_street_scene
+    from street_sparse_3dgs_tpu_torch.config import PipelineConfig
+    from street_sparse_3dgs_tpu_torch.data.toy import (make_street_scene,
+                                                       make_toy_scene)
     from street_sparse_3dgs_tpu_torch.hierarchy.build import build_hierarchy
     from street_sparse_3dgs_tpu_torch.hierarchy.io import (load_hierarchy,
                                                            save_hierarchy)
@@ -189,8 +637,6 @@ def main() -> int:
 
     if torch.get_float32_matmul_precision() != "highest":
         raise AssertionError("float32 matmuls must run in full precision")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(DEVICE)
     t_all = time.perf_counter()
 
@@ -219,9 +665,9 @@ def main() -> int:
     attrs[:, 8] = torch.rand(t_small, k_small, generator=g)
     attrs[:, 9] = torch.rand(t_small, k_small, generator=g)
     counts = torch.randint(0, 300, (t_small,), generator=g, dtype=torch.int32)
+    bgs = (torch.tensor([[0.2, 0.1, 0.3]]), torch.rand(t_small, 3, generator=g))
     small = {}
-    for bg in (torch.tensor([[0.2, 0.1, 0.3]]),
-               torch.rand(t_small, 3, generator=g)):
+    for bg in bgs:
         for tile0 in (0, 5):
             a = [x.to(dev) for x in (attrs, counts, bg)]
             k_out = cb.blend_padded(*a, tiles_x, tile0, t_small)
@@ -250,11 +696,63 @@ def main() -> int:
                        binning.slab_gather_plain(*a, 256, 12, 5000)):
         raise AssertionError("K5 small: kernel table differs from plain")
     small["K5"] = "equal"
+    # K2 / K4: each kernel's backward on the saved rows of its forward and a
+    # random cotangent, against the plain backward on the same saved rows,
+    # launched twice (bit-identical).  Terminate bait in tiles 0-5: forty
+    # wide, 0.6-opaque slots over the whole image in slots 20-59, so walks
+    # stop inside the slot list, across a 32-slot chunk boundary.
+    bait = attrs.clone()
+    bait[:6, 0, 20:60], bait[:6, 1, 20:60] = 32.0, 24.0
+    bait[:6, 2, 20:60], bait[:6, 3, 20:60], bait[:6, 4, 20:60] = 5e-4, 0, 5e-4
+    bait[:6, 8, 20:60] = 0.6
+    counts_b = counts.clone()
+    counts_b[:6] = torch.clamp(counts_b[:6], min=100)
+    g_small = torch.randn(t_small, 8, 256, generator=g)
+    for bg in bgs:
+        for tile0 in (0, 5):
+            a = [x.to(dev) for x in (bait, counts_b, bg)]
+            grid = (tiles_x, tile0, t_small)
+            saved = cb.blend_padded(*a, *grid)
+            go = g_small.to(dev)
+            d1 = cb.blend_padded_bwd(*a, saved, go, *grid)
+            d2 = cb.blend_padded_bwd(*a, saved, go, *grid)
+            cmp = compare_grads("K2 small", d1,
+                                cb.blend_padded_bwd_plain(*a, saved, go,
+                                                          *grid), 1)
+            if not torch.equal(d1, d2):
+                raise AssertionError("K2 small: two launches differ")
+            live = torch.clamp(a[1].to(torch.int64), max=k_small)[:, None]
+            cmp["terminated_pixels"] = int((saved[:, 6] < live).sum())
+            small[f"K2 tile0={tile0} bg={tuple(bg.shape)}"] = cmp
+    pairs_b = bait.permute(0, 2, 1).reshape(-1, 10)[:20 * 128]
+    a = [x.to(dev) for x in (pairs_b.reshape(20, 128, 10).contiguous(),
+                             vcounts, wt, last_v,
+                             torch.tensor([[0.2, 0.1, 0.3]]))]
+    saved = cb.blend_exact(*a, 3)
+    go = g_small[:5].contiguous().to(dev)
+    d1 = cb.blend_exact_bwd(*a, saved, go, 3)
+    d2 = cb.blend_exact_bwd(*a, saved, go, 3)
+    cmp = compare_grads("K4 small", d1,
+                        cb.blend_exact_bwd_plain(*a, saved, go, 3), 2)
+    if not torch.equal(d1, d2):
+        raise AssertionError("K4 small: two launches differ")
+    if d1[12:].any():
+        raise AssertionError("K4 small: a budget window got a grad")
+    cmp["terminated_pixels"] = int(
+        (saved[:, 6] < tile_pairs(*a[1:4])[:, None]).sum())
+    small["K4"] = cmp
     torch.cuda.synchronize()
     emit({"phase": "kernels_small", "seconds": time.perf_counter() - t0,
-          "atol": IMG_ATOL, "checks": small})
+          "atol": IMG_ATOL, "grad_bar": GRAD_BAR, "checks": small})
 
-    # ---- 3. street render (main path, counted) ---------------------------
+    # ---- 3. whole-rasterize grads, card against CPU ---------------------
+    t0 = time.perf_counter()
+    res = grads_small(dev)
+    emit({"phase": "grads_small", "seconds": time.perf_counter() - t0,
+          "n": SMALL_N, "width": SMALL_W, "height": SMALL_H,
+          "bar": f"{GRAD_BAR} * max|g| + {GRAD_RTOL} * |g|", "configs": res})
+
+    # ---- 4. street render (main path, counted) ---------------------------
     t0 = time.perf_counter()
     scene = make_street_scene(seed=0, n=N_ROWS, n_cameras=N_VIEWS,
                               width=WIDTH, height=HEIGHT, device=dev)
@@ -337,7 +835,7 @@ def main() -> int:
           "height": HEIGHT, "timed_runs": TIMED_RUNS, "launches":
           launches_render, "views": per_view})
 
-    # ---- 4. hierarchy: build, save/load, tau sweep (main path, counted) ----
+    # ---- 5. hierarchy: build, save/load, tau sweep (main path, counted) ----
     t0 = time.perf_counter()
     params = GaussianParams(
         xyz=scene.means3d, features_dc=scene.sh_coeffs[:, :1],
@@ -396,8 +894,9 @@ def main() -> int:
     emit({"phase": "hierarchy", "seconds": time.perf_counter() - t0,
           "build_seconds": build_s, "save_load_seconds": io_s,
           "nodes": h.n_nodes, "launches": launches_hier, "sweep": sweep})
+    del h, cuts
 
-    # ---- 5. where the time goes: one exact-config render of view 0 --------
+    # ---- 6. where the time goes: one exact-config render of view 0 --------
     t0 = time.perf_counter()
     cam, cfg = scene.cameras[0], configs["exact"]
     stages = {}
@@ -418,30 +917,47 @@ def main() -> int:
         cam.width).contiguous())
     stages["end_to_end"], _ = timed_runs(
         lambda: rasterize(*rows, cam, 3, bg, cfg))
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        wall0 = time.perf_counter()
-        rasterize(*rows, cam, 3, bg, cfg)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - wall0) * 1e3
-    # Device busy time: the kernels' own spans (device-side events).  Per
-    # op: the device time of the kernels each host-side op launched.
-    cuda = torch.autograd.DeviceType.CUDA
-    busy_ms = sum(e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == cuda) / 1e3
-    top = sorted((e for e in prof.key_averages() if e.device_type != cuda),
-                 key=lambda e: e.self_device_time_total, reverse=True)[:15]
+    prof = device_profile(lambda: rasterize(*rows, cam, 3, bg, cfg))
+    del proj, bins, attrs, flat
     emit({"phase": "layers", "seconds": time.perf_counter() - t0,
-          "view": 0, "config": "exact", "stage_ms": stages,
-          "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
-          "device_idle_share": 1.0 - busy_ms / wall_ms,
-          "top_device_self_ms": [[e.key, e.self_device_time_total / 1e3,
-                                  e.count] for e in top]})
+          "view": 0, "config": "exact", "stage_ms": stages, **prof})
 
-    # ---- 6. kernels at the street shapes of view 0 ------------------------
+    # ---- 7-9. training (main path, counted) ---------------------------------
+    # Street production training: BENCH_street.json / tools/bench_street.py
+    # :76-85.  spatial_lr_scale is the cameras' extent (1.1 x the largest
+    # distance from their mean centre, as the reference's nerf++ norm).
+    centres = torch.stack([c.campos for c in scene.cameras])
+    extent = 1.1 * float(torch.linalg.vector_norm(
+        centres - centres.mean(dim=0), dim=1).max())
+    street_pipe = PipelineConfig(
+        raster_method="pallas", max_dup=2, tile_capacity=128,
+        dup_overscan=32, dup_tails=STREET["dup_tails"], exact_extra=9216,
+        grad_reduce="counts", grad_sort="bf16")
+    street_rec = train_phase("train_street", rows, scene.cameras,
+                             street_pipe, STREET_STEPS, extent, dev,
+                             "blend_exact_bwd", exact_counts=True)
+    toy = make_toy_scene(seed=0, n=BENCH_N, n_cameras=1, width=BENCH_RES,
+                         height=BENCH_RES, device=dev)
+    bench_pipe = PipelineConfig(raster_method="pallas", max_dup=32,
+                                tile_capacity=384, grad_reduce="sort")
+    # One camera at radius 3 around the cube: extent 1.1 x 3.
+    bench_rec = train_phase(
+        "train_bench", (toy.means3d, toy.scales, toy.quats, toy.opacities,
+                        toy.sh_coeffs), toy.cameras, bench_pipe,
+        BENCH_STEPS, 3.3, dev, "blend_padded_bwd", exact_counts=False)
+    loop_launches = train_loop_toy(dev)
+
+    # ---- 10. kernels at the street shapes of view 0 -----------------------
     t0 = time.perf_counter()
+    counted = {"render": launches_render, "hierarchy": launches_hier,
+               "train_street": street_rec["launches"],
+               "train_bench": bench_rec["launches"],
+               "train_loop_toy": loop_launches}
+
+    def launches_of(key):
+        by = {p: c[key] for p, c in counted.items() if c[key]}
+        return {"launches": sum(by.values()), "launches_by_phase": by}
+
     n_renders = {"blend_padded": len(scene.cameras),
                  "blend_exact": len(scene.cameras) * (1 + len(TAUS)),
                  "slab_gather": len(scene.cameras) * (2 + len(TAUS))}
@@ -461,29 +977,23 @@ def main() -> int:
         plain_ms = event_ms(lambda: plain(*args), 2)
         out = rec["blend_out"]
         if exact:
-            # Pairs of each real tile: the sum of its windows' counts.
-            _, vcounts, wt, last_v = args[:4]
-            last = last_v.to(torch.int64)
-            csum = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
-                              torch.cumsum(vcounts.to(torch.int64), 0)])
-            per_tile = csum[last + 1] - csum[last - wt[last]]
-            vec_reads = 2 * vcounts.shape[0] + last_v.shape[0]
+            per_tile = tile_pairs(*args[1:4])
+            vec_reads = 2 * args[1].shape[0] + args[3].shape[0]
         else:
             per_tile = torch.clamp(args[1].to(torch.int64),
                                    max=args[0].shape[2])
             vec_reads = args[1].shape[0]
         evals = walked(out, per_tile)
-        bound_ms, bound_by = blend_bound(int(per_tile.sum()), out.shape[0],
-                                         vec_reads, evals, sfu_rate)
+        live = int(per_tile.sum())
+        bound_ms, bound_by = bound(
+            live * 40 + vec_reads * 4 + out.shape[0] * 8 * 256 * 4, evals,
+            SFU_PER_EVAL, FLOPS_PER_EVAL, sfu_rate)
         cmp = compare_blend(out, rec["plain_out"])
         key = "blend_exact" if exact else "blend_padded"
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"street_sparse_3dgs_tpu_torch/csrc/{src}",
-            "replaces": replaces,
-            "launches": launches_render[key] + launches_hier[key],
-            "launches_render": launches_render[key],
-            "launches_hierarchy": launches_hier[key],
+            "replaces": replaces, **launches_of(key),
             "launches_per_view": (launches_render[key] + launches_hier[key])
             / (n_renders[key] * (1 + TIMED_RUNS)),
             "max_abs_err": cmp["max_abs_err"],
@@ -494,8 +1004,40 @@ def main() -> int:
                          f"all but {FLIP_SHARE} of the pixels",
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
-            "live_slots": int(per_tile.sum()), "evals": evals,
+            "shapes": "street view 0", "live_slots": live, "evals": evals,
             "tiles": out.shape[0]})
+
+    # K2 at the train_bench shapes, K4 at the train_street view-0 shapes
+    # (the inputs and output recorded in those phases' bit-identity runs).
+    for name, rec, key, src, replaces, plain, shapes in (
+            ("K2 blend_padded_bwd", bench_rec, "blend_padded_bwd",
+             "blend_padded_bwd.cu",
+             "street_sparse_3dgs_tpu/ops/pallas_blend.py:244",
+             cb.blend_padded_bwd_plain, "train_bench"),
+            ("K4 blend_exact_bwd", street_rec, "blend_exact_bwd",
+             "blend_exact_bwd.cu",
+             "street_sparse_3dgs_tpu/ops/pallas_blend.py:545",
+             cb.blend_exact_bwd_plain, "train_street view 0")):
+        args, out = rec["args"], rec["out"]
+        kern = getattr(cb, key)
+        exact = key == "blend_exact_bwd"
+        ms = event_ms(lambda: kern(*args), 20)
+        plain_ms = event_ms(lambda: plain(*args), 2)
+        cmp = compare_grads(f"{name} at {shapes}", out, plain(*args),
+                            2 if exact else 1)
+        bound_ms, bound_by, live, evals = bwd_bound(args, exact, sfu_rate)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"street_sparse_3dgs_tpu_torch/csrc/{src}",
+            "replaces": replaces, **launches_of(key),
+            "max_abs_err": cmp["max_abs_err"],
+            "max_scaled_err": cmp["max_scaled_err"],
+            "tolerance": f"{GRAD_BAR} x max|g| per channel, on the same "
+                         "saved forward rows",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "shapes": shapes,
+            "live_slots": live, "evals": evals, "tiles": args[5 if exact
+                                                              else 3].shape[0]})
 
     k5_args = ex["k5"]
     sorted_vals, starts, counts_v, k_cap = k5_args[:4]
@@ -512,10 +1054,7 @@ def main() -> int:
         "name": "K5 slab_gather", "route": "cuda",
         "source": "street_sparse_3dgs_tpu_torch/csrc/slab_gather.cu",
         "replaces": "street_sparse_3dgs_tpu/ops/binning.py:159",
-        "launches": launches_render["slab_gather"]
-        + launches_hier["slab_gather"],
-        "launches_render": launches_render["slab_gather"],
-        "launches_hierarchy": launches_hier["slab_gather"],
+        **launches_of("slab_gather"),
         "launches_per_view": (launches_render["slab_gather"]
                               + launches_hier["slab_gather"])
         / (n_renders["slab_gather"] * (1 + TIMED_RUNS)),
@@ -524,8 +1063,8 @@ def main() -> int:
         "tolerance": "exactly equal",
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": k5_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "library_ms": library_ms, "rows": starts.shape[0], "k": k_cap,
-        "live_slots": live})
+        "library_ms": library_ms, "shapes": "street view 0",
+        "rows": starts.shape[0], "k": k_cap, "live_slots": live})
     torch.cuda.synchronize()
     emit({"phase": "kernels_street", "seconds": time.perf_counter() - t0,
           "card": card})

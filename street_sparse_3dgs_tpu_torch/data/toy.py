@@ -2,8 +2,10 @@
 
 ``lookat_camera`` and ``make_street_scene`` draw from numpy in the same
 order as the JAX package, so the same seed gives the same scene in both.
-(The JAX ``make_toy_scene`` draws from ``jax.random``; tests that need it
-build their inputs from the JAX scene and hand them over as numpy.)
+The JAX ``make_toy_scene`` draws from ``jax.random``, which torch cannot
+reproduce: the port's ``make_toy_scene`` has the same distributions and
+cameras from its own seeded ``torch.Generator``, and tests that need the
+JAX scene convert it through ``convert``.
 """
 
 from __future__ import annotations
@@ -121,3 +123,43 @@ def make_street_scene(seed: int = 0, n: int = 1_000_000, n_cameras: int = 4,
         return torch.as_tensor(np.ascontiguousarray(x, np.float32), device=dev)
 
     return ToyScene(t(means), t(base), t(quats), t(opac), t(sh), cams)
+
+
+def random_gaussians(generator: torch.Generator, n: int, sh_degree: int = 3,
+                     extent: float = 1.0, scale_range=(0.02, 0.12),
+                     device: str | torch.device = DEFAULT_DEVICE):
+    """(means, scales, quats, opacities, sh) of ``n`` random Gaussians in
+    the cube [-extent, extent]^3, the distributions of the JAX function,
+    drawn on the CPU from ``generator`` and moved to ``device``."""
+    dev = resolve_device(device)
+    g = generator
+    means = (torch.rand((n, 3), generator=g) * 2.0 - 1.0) * extent
+    lo, hi = scale_range
+    scales = lo + (hi - lo) * torch.rand((n, 3), generator=g)
+    quats = torch.randn((n, 4), generator=g)
+    quats = quats / torch.linalg.vector_norm(quats, dim=-1, keepdim=True)
+    opac = 0.3 + 0.65 * torch.rand((n,), generator=g)
+    k = (sh_degree + 1) ** 2
+    sh = 0.3 * torch.randn((n, k, 3), generator=g)
+    # Bias the DC band so mean colors land in a visible range.
+    sh[:, 0, :] = torch.rand((n, 3), generator=g) * 2.0 - 1.0
+    return tuple(x.to(dev) for x in (means, scales, quats, opac, sh))
+
+
+def make_toy_scene(seed: int = 0, n: int = 512, n_cameras: int = 4,
+                   width: int = 64, height: int = 64, sh_degree: int = 3,
+                   radius: float = 3.0,
+                   device: str | torch.device = DEFAULT_DEVICE) -> ToyScene:
+    """A random Gaussian cube seen by ``n_cameras`` cameras on a circle of
+    ``radius`` around it (the JAX scene's layout; its draws come from a
+    ``torch.Generator`` seeded with ``seed``)."""
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    rows = random_gaussians(gen, n, sh_degree, device=dev)
+    cams = []
+    for i in range(n_cameras):
+        ang = 2.0 * math.pi * i / max(n_cameras, 1)
+        pos = np.array([radius * math.cos(ang), radius * math.sin(ang), 0.8])
+        cams.append(lookat_camera(pos, np.zeros(3), width, height,
+                                  device=dev))
+    return ToyScene(*rows, cams)

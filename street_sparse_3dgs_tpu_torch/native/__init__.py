@@ -24,7 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("blend_padded", "blend_exact", "slab_gather")
+KERNELS = ("blend_padded", "blend_exact", "slab_gather", "blend_padded_bwd",
+           "blend_exact_bwd")
 # No --use_fast_math (expf/log1pf stay the accurate versions) and no FMA
 # contraction (-fmad=false): every product rounds on its own, as in the
 # plain PyTorch versions, so a slot whose alpha sits on the 1/255 skip
@@ -45,6 +46,12 @@ _ARGTYPES = {
     "blend_exact": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     # vals, starts, counts, T, K, rank_mask, sentinel, out, stream
     "slab_gather": [_P, _P, _P, _I, _I, _LL, _I, _P, _P],
+    # attrs, counts, bg, bg_per_tile, T, K, tiles_x, tile0, t_mod, saved,
+    # g_out, d_attrs, stream
+    "blend_padded_bwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    # attrs, vcounts, wt, last_v, bg, T, K, tiles_x, t_mod, saved, g_out,
+    # d_attrs, stream
+    "blend_exact_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
 }
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -80,7 +87,8 @@ def library_path(name: str) -> Path:
 def build() -> dict:
     """Compile every kernel whose library is missing, one ``nvcc`` per
     source in parallel.  Returns {"seconds", "built", "ptxas"} where
-    ``ptxas`` maps each built kernel to its register/shared-memory report.
+    ``ptxas`` maps each built kernel to its register, spill and
+    shared-memory report.
     Raises with the compiler's output if any build fails."""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -105,7 +113,8 @@ def build() -> dict:
             continue
         os.replace(tmp, out)
         ptxas[name] = [ln.strip() for ln in log.splitlines()
-                       if "registers" in ln or "Compiling entry" in ln]
+                       if "registers" in ln or "spill" in ln
+                       or "Compiling entry" in ln]
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return {"seconds": time.perf_counter() - t0, "built": sorted(procs),

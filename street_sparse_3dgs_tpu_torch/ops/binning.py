@@ -15,8 +15,12 @@ element.  What differs is only how the GPU gets there:
 - the ``[T, K]`` table is built by kernel K5 (``csrc/slab_gather.cu``) on
   CUDA tensors, and by its plain version on the CPU.
 
-``with_seg_pos`` (the counts-based backward segmentation) belongs to the
-training slice and raises here.
+Binning builds integer tables only: it runs under ``torch.no_grad()`` on
+detached inputs (JAX's ``stop_gradient``), so autograd keeps none of the
+``[N, S]`` emission temporaries alive through a training step.
+``with_seg_pos`` adds the per-rank emitted-pair prefix that the
+counts-based backward segments by.  ``permute_rows`` moves attribute rows
+into depth order with the inverse gather as its backward.
 """
 
 from __future__ import annotations
@@ -57,7 +61,32 @@ class TileBins(NamedTuple):
     wt: torch.Tensor | None = None       # [T_v] window index within its tile
     last_v: torch.Tensor | None = None   # [T] last window of each real tile
     vcounts: torch.Tensor | None = None  # [T_v] pairs in this window (<= K)
-    seg_pos: torch.Tensor | None = None  # training slice
+    # [M+1] int32 exclusive prefix of per-rank emitted pairs
+    # (``with_seg_pos``): rank r's slots occupy [seg_pos[r], seg_pos[r+1])
+    # of the id-sorted slot list while tile_overflow == 0.
+    seg_pos: torch.Tensor | None = None
+
+
+class _PermuteRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, order, inv_order):
+        ctx.save_for_backward(inv_order)
+        return x[order.to(torch.int64)]
+
+    @staticmethod
+    def backward(ctx, g):
+        (inv_order,) = ctx.saved_tensors
+        gpad = torch.cat([g, g.new_zeros((1,) + g.shape[1:])])
+        return gpad[inv_order.to(torch.int64)], None, None
+
+
+def permute_rows(x: torch.Tensor, order: torch.Tensor,
+                 inv_order: torch.Tensor) -> torch.Tensor:
+    """``x[order]`` whose backward is the inverse gather ``g[inv_order]``
+    (not a scatter; exact because ``order`` is a permutation).  ``order``
+    may be a slice of a permutation (visible compaction, len V): rows left
+    out carry ``inv_order == V`` and get a zero grad."""
+    return _PermuteRows.apply(x, order, inv_order)
 
 
 def num_tiles(height: int, width: int) -> tuple[int, int]:
@@ -162,7 +191,8 @@ def _tile_qmin(mean2d, conic, tile_x, tile_y):
 def _tail_bucket(kept, tile_id, inv_rank, n, start, budget, width, t_total):
     """Pair keys/ranks for compacted tile slots [start, start+width) of up to
     ``budget`` gaussians with kept > start, nearest (lowest depth rank)
-    first.  Returns (keys, ranks, lost)."""
+    first.  Returns (keys, ranks, lost, sel_rows, granted): each selected
+    row and the tail slots granted to it (for the emitted-pair count)."""
     flag = kept > start
     excess = torch.clamp(kept - start, 0, width)
     member = torch.where(flag, inv_rank, torch.full_like(inv_rank, n))
@@ -181,7 +211,7 @@ def _tail_bucket(kept, tile_id, inv_rank, n, start, budget, width, t_total):
     keys = torch.where(live, tiles, torch.full_like(tiles, t_total)).reshape(-1)
     ranks = torch.where(valid, member_b, torch.zeros_like(member_b))
     ranks = ranks[:, None].expand(tiles.shape).reshape(-1)
-    return keys, ranks, lost
+    return keys, ranks, lost, sel_safe, sel_excess
 
 
 def bin_gaussians(proj: Projected, height: int, width: int,
@@ -203,10 +233,20 @@ def bin_gaussians(proj: Projected, height: int, width: int,
     granted windows stay counted in ``tile_overflow``."""
     if key_mode not in KEY_MODES:
         raise ValueError(f"unknown key_mode {key_mode!r}")
-    if with_seg_pos:
+    with torch.no_grad():
+        return _bin(proj, height, width, max_dup, tile_capacity, dup_tails,
+                    vis_capacity, exact_extra, with_seg_pos, exact_shards,
+                    dup_overscan)
+
+
+def _bin(proj, height, width, max_dup, tile_capacity, dup_tails,
+         vis_capacity, exact_extra, with_seg_pos, exact_shards,
+         dup_overscan) -> TileBins:
+    if with_seg_pos and vis_capacity is not None and \
+            vis_capacity < proj.depth.shape[0]:
         raise NotImplementedError(
-            "seg_pos (counts-based backward segmentation) belongs to the "
-            "training slice of the port")
+            "seg_pos (counts-based backward) with vis_capacity")
+    proj = Projected(*(x.detach() for x in proj))
     dev = proj.depth.device
     n = proj.depth.shape[0]
     tiles_x, tiles_y = num_tiles(height, width)
@@ -240,8 +280,6 @@ def bin_gaussians(proj: Projected, height: int, width: int,
         inv_rank = inv_rank_n
         rank_out, order_out = inv_rank_n, order
         m = n
-    mean2d, conic = mean2d.detach(), conic.detach()
-    radius, opacity = radius.detach(), opacity.detach()
     inv_rank = inv_rank.to(i32)
 
     x0, y0, x1, y1 = tile_rect(mean2d, radius, tiles_x, tiles_y)
@@ -291,15 +329,17 @@ def bin_gaussians(proj: Projected, height: int, width: int,
     key_parts, rank_parts = [keys], [ranks]
     start = max_dup
     tail_lost = torch.zeros((), dtype=torch.int64, device=dev)
+    emitted = torch.clamp(kept, max=max_dup)                 # [N] per row
     for budget, width_t in dup_tails:
         width_t = min(width_t, scan - start)
         budget = min(budget, n)
         if width_t <= 0 or budget <= 0:
             continue
-        tk, tr, lost = _tail_bucket(kept, tile_id, inv_rank, n, start,
-                                    budget, width_t, t_total)
+        tk, tr, lost, sel_rows, granted = _tail_bucket(
+            kept, tile_id, inv_rank, n, start, budget, width_t, t_total)
         key_parts.append(tk)
         rank_parts.append(tr)
+        emitted = emitted.index_add(0, sel_rows, granted.to(i32))
         tail_lost = tail_lost + lost
         start += width_t
     keys = torch.cat(key_parts)
@@ -386,6 +426,13 @@ def bin_gaussians(proj: Projected, height: int, width: int,
                          tile_capacity, rank_bits, n)
     k = torch.arange(tile_capacity, dtype=i32, device=dev)
     mask = k[None, :] < torch.clamp(gather_counts, max=tile_capacity)[:, None]
+    if with_seg_pos:
+        # Per-RANK emitted-pair counts, then their exclusive prefix.
+        er = torch.zeros_like(emitted)
+        er[inv_rank.to(torch.int64)] = emitted
+        exact["seg_pos"] = torch.cat([
+            torch.zeros(1, dtype=i32, device=dev),
+            torch.cumsum(er, 0, dtype=torch.int64).to(i32)])
 
     return TileBins(order=order_out, rank=rank_out, gather=gather, mask=mask,
                     counts=counts, dup_overflow=dup_overflow,

@@ -1,20 +1,37 @@
-"""Forward per-tile alpha blending on hand-written CUDA kernels.
+"""Per-tile alpha blending on hand-written CUDA kernels, forward and
+backward.
 
-The counterpart of ``street_sparse_3dgs_tpu/ops/pallas_blend.py`` for the
-forward render: ``pack_gather_attrs`` gathers the [N, 10] attribute rows
-into per-tile slots, and ``blend_tiles_pallas`` blends them with
+The counterpart of ``street_sparse_3dgs_tpu/ops/pallas_blend.py``:
+``pack_gather_attrs`` gathers the [N, 10] attribute rows into per-tile
+slots, and ``blend_tiles_pallas`` blends them with
 
 - K1 ``blend_padded`` (``csrc/blend_padded.cu``): attrs channel-major
-  [T, 10, K], one tile per block;
+  [T, 10, K], one tile per block; its backward is K2
+  (``csrc/blend_padded_bwd.cu``);
 - K3 ``blend_exact`` (``csrc/blend_exact.cu``): attrs pair-major
   [T_v, K, 10] over virtual tiles, one block per REAL tile looping over its
-  windows.
+  windows; its backward is K4 (``csrc/blend_exact_bwd.cu``).
 
-Both return the packed [T, 8, 256] rows R, G, B, invdepth, alpha, log T,
-n_contrib, pad.  Each wrapper launches its kernel on CUDA tensors and runs
-its plain PyTorch version (same module) on CPU tensors, and nothing else.
-The backward kernels (K2, K4) belong to the training slice: the wrappers'
-``backward`` raises.
+The forwards return the packed [T, 8, 256] rows R, G, B, invdepth, alpha,
+log T, n_contrib, pad; the backwards take those saved rows and the
+cotangent of the same shape and return per-slot grads in the attrs' layout.
+Each wrapper launches its kernel on CUDA tensors and runs its plain
+PyTorch version (same module) on CPU tensors, and nothing else; on CPU
+tensors the autograd ``backward`` runs the plain backward versions.
+
+Around the kernels, as in the JAX module: the background gradient is a
+reduction outside the kernel, and ``pack_gather_attrs`` carries the
+slot grads back to Gaussian rows (``slot_grads_to_rows``: a stable sort of
+the slot ids and a segment sum, segments from ``TileBins.seg_pos`` under
+``grad_reduce="counts"``) and then through the inverse row permute
+(``binning.permute_rows``).
+
+Determinism on the card: K2 and K4 reduce each slot over its pixels in a
+fixed order with no atomics; the background grad is a ``torch.sum``; the
+slot->row reduction is a stable sort, a gather and ``segment_reduce``
+(one serial sum per segment); the permute backward is a gather.  So the
+blend backward gives bit-identical grads when run twice on the same
+inputs.
 """
 
 from __future__ import annotations
@@ -24,7 +41,7 @@ import math
 import torch
 
 from .. import native
-from .binning import TILE, TileBins
+from .binning import TILE, TileBins, permute_rows
 from .oracle import ALPHA_MAX, ALPHA_MIN, T_EPS
 
 P = TILE * TILE
@@ -35,6 +52,8 @@ OR, OG, OB, OI, OA, OT, ON = range(7)
 
 # Slot-pixel evaluations per chunk of the plain versions ([C, 256, L]).
 _PLAIN_ELEMS = 1 << 26
+# The plain backward keeps about twice as many [C, 256, L] temporaries.
+_PLAIN_BWD_ELEMS = 1 << 24
 
 
 def _kernel_device(x: torch.Tensor, what: str) -> bool:
@@ -99,7 +118,7 @@ def _blend_slots_plain(attrs: torch.Tensor, counts: torch.Tensor,
     ivd = torch.sum(w * ch(9), dim=-1)
     acc = torch.sum(w, dim=-1)
     tlog = torch.sum(torch.where(include, lom, torch.zeros_like(lom)), dim=-1)
-    nc = torch.sum(include, dim=-1).to(torch.float32)
+    nc = torch.sum(include, dim=-1).to(attrs.dtype)
     rgb = rgb + torch.exp(tlog)[:, :, None] * bg[:, None, :]
     return torch.stack([rgb[..., 0], rgb[..., 1], rgb[..., 2], ivd, acc,
                         tlog, nc, torch.zeros_like(acc)], dim=1)
@@ -111,7 +130,7 @@ def blend_padded_plain(attrs: torch.Tensor, counts: torch.Tensor,
     """Plain PyTorch version of K1 (same arguments and result as
     ``blend_padded``), in chunks of tiles."""
     t, _, k = attrs.shape
-    out = torch.empty((t, N_OUT, P), dtype=torch.float32, device=attrs.device)
+    out = torch.empty((t, N_OUT, P), dtype=attrs.dtype, device=attrs.device)
     step = max(1, _PLAIN_ELEMS // (P * max(k, 1)))
     counts = torch.clamp(counts, max=k)
     for s in range(0, t, step):
@@ -125,23 +144,22 @@ def blend_padded_plain(attrs: torch.Tensor, counts: torch.Tensor,
     return out
 
 
-def blend_exact_plain(attrs: torch.Tensor, vcounts: torch.Tensor,
-                      wt: torch.Tensor, last_v: torch.Tensor,
-                      bg: torch.Tensor, tiles_x: int,
-                      t_mod: int = 0) -> torch.Tensor:
-    """Plain PyTorch version of K3: each real tile's windows are
-    concatenated into one slot list (only a tile's last window can be
-    partial, so its live slots are a prefix) and blended as in K1."""
-    nv, k, _ = attrs.shape
+def _exact_chunks(vcounts: torch.Tensor, wt: torch.Tensor,
+                  last_v: torch.Tensor, k: int, elems: int):
+    """Chunks of real tiles for the plain exact versions.  Each real tile's
+    windows are concatenated into one slot list; only a tile's last window
+    can be partial, so its live slots are a prefix.  Yields (s, e, v,
+    valid, total): tiles [s, e), the [C, W] window ids of their slot lists
+    (``valid`` marks the real ones; the rest read window 0) and each tile's
+    live slot count [C]."""
     t = last_v.shape[0]
-    dev = attrs.device
+    dev = vcounts.device
     last = last_v.to(torch.int64)
     nw = wt.to(torch.int64)[last] + 1
     first = last - nw + 1
     csum = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
                       torch.cumsum(vcounts.to(torch.int64), 0)])
     total = csum[last + 1] - csum[first]
-    out = torch.empty((t, N_OUT, P), dtype=torch.float32, device=dev)
     nw_host = nw.tolist()
     s = 0
     while s < t:
@@ -150,40 +168,233 @@ def blend_exact_plain(attrs: torch.Tensor, vcounts: torch.Tensor,
         w_max = nw_host[s]
         while e < t:
             w_next = max(w_max, nw_host[e])
-            if (e + 1 - s) * w_next * k * P > _PLAIN_ELEMS:
+            if (e + 1 - s) * w_next * k * P > elems:
                 break
             w_max, e = w_next, e + 1
         j = torch.arange(w_max, device=dev)
-        v = first[s:e, None] + j[None, :]
-        v = torch.where(j[None, :] < nw[s:e, None], v, torch.zeros_like(v))
-        slots = attrs[v].reshape(e - s, w_max * k, N_CH).transpose(1, 2)
-        tiles = torch.arange(s, e, device=dev)
+        valid = j[None, :] < nw[s:e, None]
+        v = torch.where(valid, first[s:e, None] + j[None, :],
+                        torch.zeros_like(valid, dtype=torch.int64))
+        yield s, e, v, valid, total[s:e]
+        s = e
+
+
+def _chunk_tiles(s: int, e: int, dev, t_mod: int) -> torch.Tensor:
+    tiles = torch.arange(s, e, device=dev)
+    return tiles % t_mod if t_mod else tiles
+
+
+def blend_exact_plain(attrs: torch.Tensor, vcounts: torch.Tensor,
+                      wt: torch.Tensor, last_v: torch.Tensor,
+                      bg: torch.Tensor, tiles_x: int,
+                      t_mod: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of K3: each real tile's windows are
+    concatenated into one slot list and blended as in K1."""
+    _, k, _ = attrs.shape
+    out = torch.empty((last_v.shape[0], N_OUT, P), dtype=attrs.dtype,
+                      device=attrs.device)
+    for s, e, v, _, total in _exact_chunks(vcounts, wt, last_v, k,
+                                           _PLAIN_ELEMS):
+        slots = attrs[v].reshape(e - s, -1, N_CH).transpose(1, 2)
+        out[s:e] = _blend_slots_plain(
+            slots, total, _chunk_tiles(s, e, attrs.device, t_mod), tiles_x,
+            bg.expand(e - s, 3))
+    return out
+
+
+def _rev_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive suffix sum along the last axis."""
+    return torch.flip(torch.cumsum(torch.flip(x, (-1,)), -1), (-1,))
+
+
+def _blend_slots_bwd_plain(attrs: torch.Tensor, counts: torch.Tensor,
+                           tiles: torch.Tensor, tiles_x: int,
+                           bg: torch.Tensor, saved: torch.Tensor,
+                           g_out: torch.Tensor) -> torch.Tensor:
+    """Plain backward of C tiles (the formulas of K2/K4, blend_common.cuh):
+    attrs [C, 10, L] with ``counts`` [C] live slots, bg [C, 3], the saved
+    forward rows and their cotangent [C, 8, 256].  Slot k of a pixel counts
+    when k < its saved n_contrib; the log transmittance before slot k is
+    rebuilt from the saved final log T minus the suffix sum of
+    log(1 - alpha) from k on.  Returns per-slot grads [C, 10, L]."""
+    ell = attrs.shape[2]
+    px, py = _tile_pixels(tiles, tiles_x)
+    ch = lambda c: attrs[:, c, None, :]                     # [C, 1, L]
+    dx = px[:, :, None] - ch(0)                             # [C, 256, L]
+    dy = py[:, :, None] - ch(1)
+    power = -0.5 * (ch(2) * dx * dx + ch(4) * dy * dy) - ch(3) * dx * dy
+    expp = torch.exp(torch.clamp(power, max=0.0))
+    raw = ch(8) * expp
+    alpha = torch.clamp(raw, max=ALPHA_MAX)
+    k = torch.arange(ell, device=attrs.device)
+    live = (k[None, :] < counts[:, None])[:, None, :]       # [C, 1, L]
+    include = (k[None, None, :].to(torch.float32)
+               < saved[:, ON, :, None]) & live              # [C, 256, L]
+    ok = (power <= 0.0) & (alpha >= ALPHA_MIN) & include
+    del power
+    zero = torch.zeros_like(alpha)
+    alpha = torch.where(ok, alpha, zero)
+    lom = torch.log1p(-alpha)
+    t_excl = torch.exp(saved[:, OT, :, None] - _rev_cumsum(lom))
+    del lom
+    w = alpha * t_excl
+    g = lambda r: g_out[:, r, :, None]                      # [C, 256, 1]
+    pg = g(OR) * ch(5) + g(OG) * ch(6) + g(OB) * ch(7) + g(OI) * ch(9) + g(OA)
+    wpg = w * pg
+    # Strict suffix: the slots behind k.
+    suffix = torch.cat([_rev_cumsum(wpg)[..., 1:], zero[..., :1]], dim=-1)
+    del wpg
+    g_tfinal = ((g_out[:, OR] * bg[:, 0:1] + g_out[:, OG] * bg[:, 1:2]
+                 + g_out[:, OB] * bg[:, 2:3])
+                * torch.exp(saved[:, OT]))[:, :, None]      # [C, 256, 1]
+    one_m = torch.clamp(1.0 - alpha, min=1e-4)
+    g_alpha = torch.where(ok & (raw < ALPHA_MAX),
+                          t_excl * pg - (suffix + g_tfinal) / one_m, zero)
+    del t_excl, pg, suffix, one_m, raw
+    g_power = alpha * g_alpha
+    col = lambda x: torch.sum(x, dim=1)                      # [C, L]
+    return torch.stack([
+        col(g_power * (ch(2) * dx + ch(3) * dy)),
+        col(g_power * (ch(4) * dy + ch(3) * dx)),
+        col(g_power * (-0.5 * dx * dx)),
+        col(g_power * (-dx * dy)),
+        col(g_power * (-0.5 * dy * dy)),
+        col(g(OR) * w), col(g(OG) * w), col(g(OB) * w),
+        col(expp * g_alpha),
+        col(w * g(OI))], dim=1)
+
+
+def blend_padded_bwd_plain(attrs: torch.Tensor, counts: torch.Tensor,
+                           bg: torch.Tensor, saved: torch.Tensor,
+                           g_out: torch.Tensor, tiles_x: int, tile0: int = 0,
+                           t_mod: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of K2 (same arguments and result as
+    ``blend_padded_bwd``), in chunks of tiles."""
+    t, _, k = attrs.shape
+    out = torch.empty_like(attrs)
+    step = max(1, _PLAIN_BWD_ELEMS // (P * max(k, 1)))
+    counts = torch.clamp(counts, max=k)
+    for s in range(0, t, step):
+        e = min(t, s + step)
+        tiles = torch.arange(s, e, device=attrs.device) + tile0
         if t_mod:
             tiles = tiles % t_mod
-        out[s:e] = _blend_slots_plain(slots, total[s:e], tiles, tiles_x,
-                                      bg.expand(e - s, 3))
-        s = e
+        bg_c = bg[s:e] if bg.shape[0] != 1 else bg.expand(e - s, 3)
+        out[s:e] = _blend_slots_bwd_plain(attrs[s:e], counts[s:e], tiles,
+                                          tiles_x, bg_c, saved[s:e],
+                                          g_out[s:e])
     return out
+
+
+def blend_exact_bwd_plain(attrs: torch.Tensor, vcounts: torch.Tensor,
+                          wt: torch.Tensor, last_v: torch.Tensor,
+                          bg: torch.Tensor, saved: torch.Tensor,
+                          g_out: torch.Tensor, tiles_x: int,
+                          t_mod: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of K4 (same arguments and result as
+    ``blend_exact_bwd``): each real tile's windows as one slot list, as in
+    ``blend_exact_plain``, and the slot grads put back into their windows.
+    Budget windows no tile uses stay zero."""
+    _, k, _ = attrs.shape
+    out = torch.zeros_like(attrs)
+    for s, e, v, valid, total in _exact_chunks(vcounts, wt, last_v, k,
+                                               _PLAIN_BWD_ELEMS):
+        slots = attrs[v].reshape(e - s, -1, N_CH).transpose(1, 2)
+        d = _blend_slots_bwd_plain(
+            slots, total, _chunk_tiles(s, e, attrs.device, t_mod), tiles_x,
+            bg.expand(e - s, 3), saved[s:e], g_out[s:e])
+        d = d.transpose(1, 2).reshape(e - s, -1, k, N_CH)
+        out[v[valid]] = d[valid]
+    return out
+
+
+def background_grad(saved: torch.Tensor, g_out: torch.Tensor,
+                    per_tile: bool) -> torch.Tensor:
+    """d loss / d bg of a blend (outside the kernel, as
+    ``pallas_blend.py:863-868``): sum over pixels of T_final * g_rgb, per
+    tile [T, 3] or summed [1, 3]."""
+    t_final = torch.exp(saved[:, OT])                       # [T, 256]
+    per = torch.sum(t_final[:, None, :] * g_out[:, OR:OB + 1], dim=2)
+    return per if per_tile else torch.sum(per, dim=0, keepdim=True)
+
+
+def blend_padded_bwd(attrs: torch.Tensor, counts: torch.Tensor,
+                     bg: torch.Tensor, saved: torch.Tensor,
+                     g_out: torch.Tensor, tiles_x: int, tile0: int = 0,
+                     t_mod: int = 0) -> torch.Tensor:
+    """K2.  The inputs of K1 plus its saved output and the cotangent
+    ``g_out`` [T, 8, 256] f32.  Returns the per-slot grads [T, 10, K]
+    (zeros past the count).  Launches ``csrc/blend_padded_bwd.cu`` on CUDA
+    tensors; runs ``blend_padded_bwd_plain`` on CPU tensors."""
+    dev = attrs.device
+    t, _, k = attrs.shape
+    for name, x in (("saved", saved), ("g_out", g_out)):
+        _check(x, name, torch.float32, 3, dev)
+        if tuple(x.shape) != (t, N_OUT, P):
+            raise ValueError(f"blend_padded_bwd: {name} has shape "
+                             f"{tuple(x.shape)}, expected {(t, N_OUT, P)}")
+    if not _kernel_device(attrs, "blend_padded_bwd"):
+        return blend_padded_bwd_plain(attrs, counts, bg, saved, g_out,
+                                      tiles_x, tile0, t_mod)
+    d = torch.empty_like(attrs)
+    native.launch("blend_padded_bwd", attrs.data_ptr(), counts.data_ptr(),
+                  bg.data_ptr(), int(bg.shape[0] != 1), t, k, tiles_x, tile0,
+                  t_mod, saved.data_ptr(), g_out.data_ptr(), d.data_ptr())
+    return d
+
+
+def blend_exact_bwd(attrs: torch.Tensor, vcounts: torch.Tensor,
+                    wt: torch.Tensor, last_v: torch.Tensor, bg: torch.Tensor,
+                    saved: torch.Tensor, g_out: torch.Tensor, tiles_x: int,
+                    t_mod: int = 0) -> torch.Tensor:
+    """K4.  The inputs of K3 plus its saved per-real-tile output and the
+    cotangent ``g_out`` [T, 8, 256] f32.  Returns the pair-major per-slot
+    grads [T_v, K, 10] (zeros past each window's count and in budget
+    windows no tile uses).  Launches ``csrc/blend_exact_bwd.cu`` on CUDA
+    tensors; runs ``blend_exact_bwd_plain`` on CPU tensors."""
+    dev = attrs.device
+    t = last_v.shape[0]
+    for name, x in (("saved", saved), ("g_out", g_out)):
+        _check(x, name, torch.float32, 3, dev)
+        if tuple(x.shape) != (t, N_OUT, P):
+            raise ValueError(f"blend_exact_bwd: {name} has shape "
+                             f"{tuple(x.shape)}, expected {(t, N_OUT, P)}")
+    if not _kernel_device(attrs, "blend_exact_bwd"):
+        return blend_exact_bwd_plain(attrs, vcounts, wt, last_v, bg, saved,
+                                     g_out, tiles_x, t_mod)
+    d = torch.zeros_like(attrs)
+    native.launch("blend_exact_bwd", attrs.data_ptr(), vcounts.data_ptr(),
+                  wt.data_ptr(), last_v.data_ptr(), bg.data_ptr(), t,
+                  attrs.shape[1], tiles_x, t_mod, saved.data_ptr(),
+                  g_out.data_ptr(), d.data_ptr())
+    return d
 
 
 class _BlendPadded(torch.autograd.Function):
     @staticmethod
     def forward(ctx, attrs, counts, bg, tiles_x, tile0, t_mod):
         t, _, k = attrs.shape
-        if not _kernel_device(attrs, "blend_padded"):
-            return blend_padded_plain(attrs, counts, bg, tiles_x, tile0,
-                                      t_mod)
-        out = torch.empty((t, N_OUT, P), dtype=torch.float32,
-                          device=attrs.device)
-        native.launch("blend_padded", attrs.data_ptr(), counts.data_ptr(),
-                      bg.data_ptr(), int(bg.shape[0] != 1), t, k, tiles_x,
-                      tile0, t_mod, out.data_ptr())
+        if _kernel_device(attrs, "blend_padded"):
+            out = torch.empty((t, N_OUT, P), dtype=torch.float32,
+                              device=attrs.device)
+            native.launch("blend_padded", attrs.data_ptr(),
+                          counts.data_ptr(), bg.data_ptr(),
+                          int(bg.shape[0] != 1), t, k, tiles_x, tile0, t_mod,
+                          out.data_ptr())
+        else:
+            out = blend_padded_plain(attrs, counts, bg, tiles_x, tile0,
+                                     t_mod)
+        ctx.save_for_backward(attrs, counts, bg, out)
+        ctx.grid = (tiles_x, tile0, t_mod)
         return out
 
     @staticmethod
     def backward(ctx, g_out):
-        raise NotImplementedError(
-            "the padded blend backward (K2) belongs to the training slice")
+        attrs, counts, bg, saved = ctx.saved_tensors
+        g_out = g_out.to(torch.float32).contiguous()
+        d = blend_padded_bwd(attrs, counts, bg, saved, g_out, *ctx.grid)
+        g_bg = background_grad(saved, g_out, bg.shape[0] != 1)
+        return d, None, g_bg, None, None, None
 
 
 class _BlendExact(torch.autograd.Function):
@@ -191,20 +402,27 @@ class _BlendExact(torch.autograd.Function):
     def forward(ctx, attrs, vcounts, wt, last_v, bg, tiles_x, t_mod):
         _, k, _ = attrs.shape
         t = last_v.shape[0]
-        if not _kernel_device(attrs, "blend_exact"):
-            return blend_exact_plain(attrs, vcounts, wt, last_v, bg, tiles_x,
-                                     t_mod)
-        out = torch.empty((t, N_OUT, P), dtype=torch.float32,
-                          device=attrs.device)
-        native.launch("blend_exact", attrs.data_ptr(), vcounts.data_ptr(),
-                      wt.data_ptr(), last_v.data_ptr(), bg.data_ptr(), t, k,
-                      tiles_x, t_mod, out.data_ptr())
+        if _kernel_device(attrs, "blend_exact"):
+            out = torch.empty((t, N_OUT, P), dtype=torch.float32,
+                              device=attrs.device)
+            native.launch("blend_exact", attrs.data_ptr(), vcounts.data_ptr(),
+                          wt.data_ptr(), last_v.data_ptr(), bg.data_ptr(), t,
+                          k, tiles_x, t_mod, out.data_ptr())
+        else:
+            out = blend_exact_plain(attrs, vcounts, wt, last_v, bg, tiles_x,
+                                    t_mod)
+        ctx.save_for_backward(attrs, vcounts, wt, last_v, bg, out)
+        ctx.grid = (tiles_x, t_mod)
         return out
 
     @staticmethod
     def backward(ctx, g_out):
-        raise NotImplementedError(
-            "the exact blend backward (K4) belongs to the training slice")
+        attrs, vcounts, wt, last_v, bg, saved = ctx.saved_tensors
+        g_out = g_out.to(torch.float32).contiguous()
+        d = blend_exact_bwd(attrs, vcounts, wt, last_v, bg, saved, g_out,
+                            *ctx.grid)
+        g_bg = background_grad(saved, g_out, False)
+        return d, None, None, None, g_bg, None, None
 
 
 def blend_padded(attrs: torch.Tensor, counts: torch.Tensor, bg: torch.Tensor,
@@ -247,27 +465,90 @@ def blend_exact(attrs: torch.Tensor, vcounts: torch.Tensor, wt: torch.Tensor,
                              int(t_mod))
 
 
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def slot_grads_to_rows(d_slots: torch.Tensor, ids: torch.Tensor, m: int,
+                       seg_pos: torch.Tensor | None = None,
+                       grad_sort: str = "f32") -> torch.Tensor:
+    """The backward of the slot gather (``_gather_pack_bwd``,
+    ``pallas_blend.py:1000-1081``): per-slot grads ``d_slots`` [P, C] of
+    slot ids ``ids`` [P] (sentinel ``m`` for masked slots) summed into rows
+    [m, C].  The slots are sorted by id (stable) and each row's segment is
+    summed in f32.  Segments come from ``seg_pos`` [m + 1] (the per-rank
+    emitted-pair prefix, ``grad_reduce="counts"``; sound only at
+    ``tile_overflow == 0``, as in JAX) or, without it, from the sorted ids
+    themselves.  ``grad_sort="bf16"`` rounds each slot's grad to bf16 before
+    the sum, as the JAX packed sort does."""
+    sorted_ids, perm = torch.sort(ids.reshape(-1), stable=True)
+    vals = d_slots[perm]
+    if grad_sort == "bf16":
+        vals = _round_bf16(vals)
+    if seg_pos is None:
+        offsets = torch.searchsorted(
+            sorted_ids, torch.arange(m + 1, dtype=sorted_ids.dtype,
+                                     device=ids.device))
+    else:
+        # Clamped so that an overflowing counts step (whose update the
+        # train step reverts) cannot index past the slots.
+        offsets = torch.clamp(seg_pos, max=vals.shape[0])
+    return torch.segment_reduce(vals, "sum", offsets=offsets.to(torch.int64),
+                                axis=0, unsafe=True)
+
+
+class _GatherPack(torch.autograd.Function):
+    """``rows[gather]`` ([M, 10] -> [T, K, 10], channel-major [T, 10, K]
+    unless ``pair_major``) whose backward is ``slot_grads_to_rows``."""
+
+    @staticmethod
+    def forward(ctx, attrs_n, gather, seg_pos, grad_sort, pair_major, bf16):
+        rows = torch.cat([attrs_n, attrs_n.new_zeros((1, N_CH))])
+        out = rows[gather.to(torch.int64)]                   # [T, K, 10]
+        ctx.save_for_backward(gather, seg_pos)
+        ctx.cfg = (attrs_n.shape[0], grad_sort, pair_major, bf16)
+        return out if pair_major else out.transpose(1, 2).contiguous()
+
+    @staticmethod
+    def backward(ctx, d):
+        gather, seg_pos = ctx.saved_tensors
+        m, grad_sort, pair_major, bf16 = ctx.cfg
+        d2 = (d if pair_major else d.transpose(1, 2)).reshape(-1, N_CH)
+        if bf16:
+            # The slot grads and row sums at the attrs' precision, as the
+            # JAX kernels' bf16 outputs and its ``astype(d.dtype)``.
+            d2 = _round_bf16(d2)
+        rows = slot_grads_to_rows(d2.to(torch.float32), gather, m, seg_pos,
+                                  grad_sort)
+        if bf16:
+            rows = _round_bf16(rows)
+        return rows, None, None, None, None, None
+
+
 def pack_gather_attrs(gather, mean2d, conic, color, opacity, inv_depth,
                       dtype=torch.float32, order=None, rank=None,
+                      grad_sort="f32", seg_pos=None,
                       pair_major=False) -> torch.Tensor:
     """[N, ·] attributes + [T, K] depth-rank table -> packed kernel input:
     channel-major [T, 10, K], or pair-major [T, K, 10] for the exact kernel.
 
-    With ``order`` (``TileBins.order``) the [N, 10] rows are moved into
-    depth order first; sentinel ranks (masked slots) read an appended zero
-    row.  ``rank`` is accepted for interface parity with the JAX function,
-    where it drives the backward of the row permute.  ``dtype=bfloat16``
-    rounds the payload to bf16 and back: the TPU kernel upcasts on load, so
-    this is its numerics, blended in f32."""
+    With ``order``/``rank`` (``TileBins.order`` / ``TileBins.rank``) the
+    [N, 10] rows are moved into depth order first (``permute_rows``, whose
+    backward is the inverse gather); sentinel ranks (masked slots) read an
+    appended zero row.  ``dtype=bfloat16`` rounds the payload to bf16 and
+    back: the TPU kernel upcasts on load, so this is its numerics, blended
+    in f32; the backward rounds the slot grads and row sums to bf16 too.
+    The backward of the gather is ``slot_grads_to_rows`` with ``seg_pos``
+    and ``grad_sort``."""
     attrs_n = torch.cat([mean2d, conic, color, opacity[:, None],
                          inv_depth[:, None]], dim=1).to(torch.float32)
-    if dtype != torch.float32:
-        attrs_n = attrs_n.to(dtype).to(torch.float32)
+    bf16 = dtype == torch.bfloat16
+    if bf16:
+        attrs_n = _round_bf16(attrs_n)
     if order is not None:
-        attrs_n = attrs_n[order]
-    attrs_n = torch.cat([attrs_n, attrs_n.new_zeros((1, N_CH))])
-    out = attrs_n[gather.to(torch.int64)]                   # [T, K, 10]
-    return out if pair_major else out.transpose(1, 2).contiguous()
+        attrs_n = permute_rows(attrs_n, order, rank)
+    return _GatherPack.apply(attrs_n, gather, seg_pos, grad_sort, pair_major,
+                             bf16)
 
 
 def _to_image(flat: torch.Tensor, tiles_x: int, tiles_y: int, height: int,
@@ -293,10 +574,13 @@ def blend_tiles_pallas(
     grad_sort: str = "f32",
     tile_batch: int = 0,
 ):
-    """Forward blend of binned tiles through K1 (padded) or K3 (exact mode,
-    when ``bins.t_of_v`` is set).  Returns (image [3,H,W], invdepth
-    [1,H,W], alpha [H,W]).  ``grad_sort`` and ``tile_batch`` are TPU
-    knobs, accepted for interface parity; they change nothing here."""
+    """Blend of binned tiles through K1 (padded) or K3 (exact mode, when
+    ``bins.t_of_v`` is set), differentiable through K2 / K4.  Returns
+    (image [3,H,W], invdepth [1,H,W], alpha [H,W]).  ``grad_sort`` shapes
+    the slot->row reduction (``slot_grads_to_rows``), which takes its
+    segments from ``bins.seg_pos`` when binning made them.  ``tile_batch``
+    is a TPU knob, accepted for interface parity; it changes nothing
+    here."""
     tiles_x, tiles_y = bins.tiles_x, bins.tiles_y
     k_cap = bins.gather.shape[1]
     if k_cap % 128 != 0:
@@ -305,7 +589,8 @@ def blend_tiles_pallas(
     exact = bins.t_of_v is not None
     attrs = pack_gather_attrs(bins.gather, mean2d, conic, color, opacity,
                               inv_depth, dtype=attr_dtype, order=bins.order,
-                              rank=bins.rank, pair_major=exact)
+                              rank=bins.rank, grad_sort=grad_sort,
+                              seg_pos=bins.seg_pos, pair_major=exact)
     bg2 = bg.reshape(1, 3).to(torch.float32).contiguous()
     if exact:
         out = blend_exact(attrs, bins.vcounts, bins.wt, bins.last_v, bg2,

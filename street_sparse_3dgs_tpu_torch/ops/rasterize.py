@@ -8,10 +8,16 @@ rasterize.py``:
 ``RasterConfig`` has the same fields, defaults and method names as the JAX
 one, so a JAX config means the same thing here.  ``method="pallas"`` — the
 name kept from the JAX package, where it selects the Pallas TPU kernels —
-selects this port's hand-written CUDA kernels: K5 builds the tile tables
-and K1 (padded) or K3 (``exact_extra > 0``) blends them, on CUDA tensors.
-This slice is forward only: ``grad_reduce`` is validated as in JAX but
-changes nothing, since it only shapes the backward.
+selects this port's hand-written CUDA kernels: K5 builds the tile tables,
+K1 (padded) or K3 (``exact_extra > 0``) blends them, and their backwards
+K2 / K4 run under autograd, on CUDA tensors.  ``grad_reduce`` and
+``grad_sort`` shape the slot->Gaussian reduction of the backward
+(``cuda_blend.slot_grads_to_rows``): ``"counts"`` takes its segments from
+binning's ``seg_pos`` and is sound only at ``tile_overflow == 0``.
+
+Every method is differentiable with respect to the Gaussian rows, ``bg``
+and ``mean2d_residual``: pass zeros [N, 2] with ``requires_grad`` and read
+its grad for the screen-space position gradients densification needs.
 """
 
 from __future__ import annotations
@@ -38,10 +44,10 @@ class RasterConfig:
     tiles_chunk: int = 16        # tiles blended per step of the tiled method
     attr_dtype: str = "f32"      # "f32" | "bf16" (pallas method only)
     vis_capacity: int | None = None
-    grad_sort: str = "f32"       # "f32" | "bf16" (backward; no effect here)
+    grad_sort: str = "f32"       # "f32" | "bf16" (backward slot reduction)
     tile_batch: int = 0          # TPU program batching (no effect here)
     exact_extra: int = 0         # extra K-wide windows (exact mode when > 0)
-    grad_reduce: str = "sort"    # "sort" | "counts" (backward; validated)
+    grad_reduce: str = "sort"    # "sort" | "counts" (backward segments)
     dup_overscan: int = 0
     dup_tails: tuple = ()
 
@@ -94,6 +100,7 @@ def rasterize(
                              "(exact_extra > 0)")
         kw = dict(vis_capacity=config.vis_capacity,
                   exact_extra=config.exact_extra,
+                  with_seg_pos=config.grad_reduce == "counts",
                   dup_overscan=config.dup_overscan)
         if config.dup_tails:
             kw["dup_tails"] = config.dup_tails

@@ -149,10 +149,19 @@ def test_tile_bins_equal_jax_for_every_key_mode(case):
 
 
 def test_bin_gaussians_rejects_seg_pos(small):
+    """``with_seg_pos`` gives JAX's ``seg_pos``; both packages reject it
+    with visible compaction."""
     proj_t = Projected(*(t(x) for x in small["proj"]))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tbin.bin_gaussians(proj_t, 48, 64, 32, 256, exact_extra=8,
-                           with_seg_pos=True)
+    got = tbin.bin_gaussians(proj_t, 48, 64, 32, 256, exact_extra=8,
+                             with_seg_pos=True)
+    want = jbin.bin_gaussians(small["proj"], 48, 64, 32, 256, exact_extra=8,
+                              with_seg_pos=True)
+    np.testing.assert_array_equal(got.seg_pos.numpy(),
+                                  np.asarray(want.seg_pos))
+    for binner, proj in ((tbin, proj_t), (jbin, small["proj"])):
+        with pytest.raises(NotImplementedError, match="vis_capacity"):
+            binner.bin_gaussians(proj, 48, 64, 32, 256, exact_extra=8,
+                                 with_seg_pos=True, vis_capacity=100)
 
 
 @pytest.mark.parametrize("k_cap", [128, 256])

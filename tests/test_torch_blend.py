@@ -149,18 +149,23 @@ def test_k3_plain_matches_jax_blend_exact(case):
 
 
 def test_blend_backward_names_training_slice():
+    """The blend wrappers are differentiable (K2 / K4 on the card, their
+    plain versions here): with no live slot every pixel shows the
+    background, so the attrs get zero grads and bg gets the pixel count."""
     attrs = torch.zeros(1, 10, 128, requires_grad=True)
-    out = cb.blend_padded(attrs, torch.zeros(1, dtype=torch.int32),
-                          torch.zeros(1, 3), 1)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        out.sum().backward()
+    bg = torch.zeros(1, 3, requires_grad=True)
+    out = cb.blend_padded(attrs, torch.zeros(1, dtype=torch.int32), bg, 1)
+    out[:, :3].sum().backward()
+    assert torch.equal(attrs.grad, torch.zeros_like(attrs))
+    assert torch.equal(bg.grad, torch.full((1, 3), 256.0))
     pairs = torch.zeros(1, 128, 10, requires_grad=True)
+    bg = torch.zeros(1, 3, requires_grad=True)
     out = cb.blend_exact(pairs, torch.zeros(1, dtype=torch.int32),
                          torch.zeros(1, dtype=torch.int32),
-                         torch.zeros(1, dtype=torch.int32), torch.zeros(1, 3),
-                         1)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        out.sum().backward()
+                         torch.zeros(1, dtype=torch.int32), bg, 1)
+    out[:, :3].sum().backward()
+    assert torch.equal(pairs.grad, torch.zeros_like(pairs))
+    assert torch.equal(bg.grad, torch.full((1, 3), 256.0))
 
 
 def test_blend_wrappers_check_inputs():

@@ -1,0 +1,183 @@
+"""PyTorch port, backward blend kernels: the plain versions of K2
+(``blend_padded_bwd``) and K4 (``blend_exact_bwd``), reached through the
+autograd ``backward`` of ``blend_padded`` / ``blend_exact`` on CPU tensors,
+against JAX's ``_blend_packed_bwd`` / ``_blend_exact_bwd`` in interpret
+mode, fed through ``jax.vjp`` of ``_blend_packed`` / ``_blend_exact`` on the
+same numpy inputs and cotangent.  Each package's backward reads its own
+forward's saved rows (the TPU kernel's n_contrib also counts padding
+lanes, which its backward masks out).
+
+Bar: per channel, 3e-4 * max|g| of that channel with rtol 2e-3 (the
+gradient bar of tests/test_pallas_blend.py); the background grad too.
+``chip_smoke.py`` holds the CUDA kernels against these plain versions on
+the card."""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from street_sparse_3dgs_tpu.ops import pallas_blend as jpb
+from street_sparse_3dgs_tpu_torch.ops import cuda_blend as cb
+from test_torch_blend import TILES_X, TILES_Y, exact_layout, random_slots
+
+torch.set_num_threads(1)
+
+
+def close(got, want, what):
+    """|got - want| <= 3e-4 * max|want| of the channel + 2e-3 * |want|, the
+    channel on the last axis."""
+    got, want = np.asarray(got), np.asarray(want)
+    scale = np.abs(want).max(axis=0) + 1e-12
+    excess = np.abs(got - want) - 2e-3 * np.abs(want) - 3e-4 * scale
+    assert (excess <= 0).all(), (
+        what, float((np.abs(got - want) / scale).max()))
+
+
+def channels_last(x, channel_axis):
+    return np.moveaxis(np.asarray(x), channel_axis, -1).reshape(-1, 10)
+
+
+K2_CASES = {
+    "benign": dict(terminate=False, tile0=0, t_mod=0, per_tile_bg=False,
+                   clamp=False),
+    "terminate_across_blocks": dict(terminate=True, tile0=0, t_mod=0,
+                                    per_tile_bg=False, clamp=False),
+    "tile0_t_mod": dict(terminate=False, tile0=5, t_mod=12,
+                        per_tile_bg=False, clamp=False),
+    "per_tile_bg": dict(terminate=False, tile0=0, t_mod=0, per_tile_bg=True,
+                        clamp=False),
+    "clamped_alpha": dict(terminate=False, tile0=0, t_mod=0,
+                          per_tile_bg=False, clamp=True),
+}
+
+
+def clamp_some(rng, slots):
+    """Near-opaque narrow slots: their raw alpha reaches 0.99 at the
+    centre pixels, where the grad of alpha is cut."""
+    pick = rng.uniform(0, 1, slots.shape[0]) < 0.15
+    slots[pick, 8] = rng.uniform(0.995, 1.0, pick.sum())
+    return slots
+
+
+@pytest.mark.parametrize("case", sorted(K2_CASES))
+def test_k2_plain_matches_jax_blend_packed_bwd(case):
+    c = K2_CASES[case]
+    rng = np.random.default_rng(23)
+    t, k = TILES_X * TILES_Y, 256
+    counts = rng.integers(0, 320, t).astype(np.int32)
+    counts[0], counts[1] = 0, k
+    if c["terminate"]:
+        counts[:] = np.maximum(counts, 200)
+    slots = [random_slots(rng, k, c["terminate"]) for _ in range(t)]
+    if c["clamp"]:
+        slots = [clamp_some(rng, s) for s in slots]
+    attrs = np.ascontiguousarray(np.stack([s.T for s in slots]))
+    bg = (rng.uniform(0, 1, (t, 3)) if c["per_tile_bg"]
+          else np.array([[0.2, 0.4, 0.6]])).astype(np.float32)
+    g_out = rng.normal(0, 1, (t, 8, 256)).astype(np.float32)
+
+    tile0 = jnp.full((1, 1), c["tile0"], jnp.int32)
+    _, vjp = jax.vjp(lambda a, b: jpb._blend_packed(
+        True, TILES_X, c["t_mod"], 1, tile0, jnp.asarray(counts)[None, :],
+        a, b), jnp.asarray(attrs), jnp.asarray(bg))
+    want_a, want_bg = vjp(jnp.asarray(g_out))
+
+    a_t = torch.tensor(attrs, requires_grad=True)
+    bg_t = torch.tensor(bg, requires_grad=True)
+    out = cb.blend_padded(a_t, torch.tensor(counts), bg_t, TILES_X,
+                          c["tile0"], c["t_mod"])
+    out.backward(torch.tensor(g_out))
+    close(channels_last(a_t.grad, 1), channels_last(want_a, 1), "attrs")
+    close(bg_t.grad.numpy(), np.asarray(want_bg), "bg")
+    # Slots past each tile's count get exactly zero.
+    for ti, cnt in enumerate(counts):
+        assert not a_t.grad[ti, :, min(cnt, k):].any()
+    if c["clamp"]:
+        assert float(np.abs(np.asarray(want_a)[:, 8]).max()) > 0
+
+
+K4_CASES = {"benign": dict(terminate=False, clamp=False),
+            "terminate_across_windows": dict(terminate=True, clamp=False),
+            "clamped_alpha": dict(terminate=False, clamp=True)}
+
+
+@pytest.mark.parametrize("case", sorted(K4_CASES))
+def test_k4_plain_matches_jax_blend_exact_bwd(case):
+    """Multi-window tiles (a partial last window, a tile with no pairs) and
+    five budget windows no tile uses."""
+    c = K4_CASES[case]
+    rng = np.random.default_rng(29)
+    k = 128
+    tile_counts = [0, 300, 128, 129, 40, 512, 7, 256, 1, 384, 200, 90]
+    if c["terminate"]:
+        tile_counts = [max(n, 300) for n in tile_counts]
+    vcounts, wt, last_v, t_of_v = exact_layout(tile_counts, k, 5)
+    nv, t = vcounts.shape[0], len(tile_counts)
+    attrs = np.zeros((nv, k, 10), np.float32)
+    for ti, cnt in enumerate(tile_counts):
+        slots = random_slots(rng, max(cnt, 1), c["terminate"])
+        if c["clamp"]:
+            slots = clamp_some(rng, slots)
+        first = last_v[ti] - wt[last_v[ti]]
+        for j in range(wt[last_v[ti]] + 1):
+            part = slots[j * k:(j + 1) * k]
+            attrs[first + j, :len(part)] = part
+    attrs[t_of_v == t] = rng.uniform(0, 1, attrs[t_of_v == t].shape)
+    bg = np.array([[0.3, 0.2, 0.1]], np.float32)
+    g_out = rng.normal(0, 1, (t, 8, 256)).astype(np.float32)
+
+    t_safe = np.minimum(t_of_v, t - 1)
+    is_last = (t_of_v >= t) | (np.arange(nv) == last_v[t_safe])
+    meta = np.stack([t_safe, wt, vcounts, is_last.astype(np.int32)])
+    _, vjp = jax.vjp(lambda a, b: jpb._blend_exact(
+        True, TILES_X, 1, None, None, 0, jnp.asarray(meta),
+        jnp.asarray(last_v), a, b), jnp.asarray(attrs), jnp.asarray(bg))
+    want_a, want_bg = vjp(jnp.asarray(g_out))
+
+    a_t = torch.tensor(attrs, requires_grad=True)
+    bg_t = torch.tensor(bg, requires_grad=True)
+    out = cb.blend_exact(a_t, torch.tensor(vcounts), torch.tensor(wt),
+                         torch.tensor(last_v), bg_t, TILES_X)
+    out.backward(torch.tensor(g_out))
+    close(channels_last(a_t.grad, 2), channels_last(want_a, 2), "attrs")
+    close(bg_t.grad.numpy(), np.asarray(want_bg), "bg")
+    # Budget windows no tile uses stay exactly zero.
+    assert not a_t.grad[torch.tensor(t_of_v == t)].any()
+
+
+def test_k2_plain_finite_differences_f64():
+    """The plain backward against central differences of the plain forward,
+    both in float64, on a smooth tiny case (no clamped alpha, no
+    termination, opacities well inside (1/255, 0.99))."""
+    rng = np.random.default_rng(3)
+    t, k = 2, 128
+    slots = [random_slots(rng, k, False) for _ in range(t)]
+    attrs = torch.tensor(np.stack([s.T for s in slots]), dtype=torch.float64)
+    attrs[:, 8] = attrs[:, 8].clamp(0.1, 0.6)
+    counts = torch.tensor([40, 25], dtype=torch.int32)
+    bg = torch.tensor([[0.3, 0.5, 0.7]], dtype=torch.float64)
+    g_out = torch.tensor(rng.normal(0, 1, (t, 8, 256)))
+    g_out[:, 5:] = 0.0
+
+    def loss(a):
+        return float(torch.sum(cb.blend_padded_plain(a, counts, bg, 2)
+                               * g_out))
+
+    saved = cb.blend_padded_plain(attrs, counts, bg, 2)
+    grad = cb.blend_padded_bwd_plain(attrs, counts, bg, saved, g_out, 2)
+    eps = 1e-6
+    checked = 0
+    for ti in range(t):
+        for slot in range(0, int(counts[ti]), 7):
+            for ch in range(10):
+                up, dn = attrs.clone(), attrs.clone()
+                up[ti, ch, slot] += eps
+                dn[ti, ch, slot] -= eps
+                fd = (loss(up) - loss(dn)) / (2 * eps)
+                g = float(grad[ti, ch, slot])
+                assert abs(fd - g) <= 1e-5 * max(1.0, abs(fd)), \
+                    (ti, ch, slot, fd, g)
+                checked += 1
+    assert checked >= 90
