@@ -3,14 +3,16 @@
 
     python3 chip_smoke.py
 
-Drives the port's forward LOD render path and its training path on the
-card and holds every hand-written kernel against its plain PyTorch version:
+Drives the port's forward LOD render path, its training path and its
+street-scale tools path on the card and holds every hand-written kernel
+against its plain PyTorch version:
 
 1. build   — compile ``street_sparse_3dgs_tpu_torch/csrc/*.cu`` (one nvcc per
              source, in parallel) into the ignored ``build/kernels/``;
 2. kernels_small — K1 (padded blend), K2 (its backward), K3 (exact blend),
-             K4 (its backward) and K5 (slab gather) on small inputs against
-             their plain versions; K2 and K4 launched twice (bit-identical);
+             K4 (its backward), K5 (slab gather) and the kernel-floor stubs
+             D1-D3 on small inputs against their plain versions; K2 and K4
+             launched twice (bit-identical);
 3. grads_small — ``rasterize`` and its backward on a toy scene in the
              padded and the exact+counts config, on the card (kernels) and
              on the CPU (plain versions);
@@ -23,16 +25,29 @@ card and holds every hand-written kernel against its plain PyTorch version:
              through ``pixel_limit -> select_cut -> render_cut_compact``;
 6. layers  — the stages of one street render timed apart, and a profile
              of it (device time by op, device idle share);
-7. train_street — 12 steps of ``make_train_step`` on the street scene in
+7. kernel_floor — ``tools/kernel_floor``'s measurements on phase 4's view-0
+             exact binning: the real K3 against the stubs D1 (channel-major,
+             levels 2..-2), D2 (pair-major, levels 2, 0, -1) and D3 (level
+             0, 1/2/4/8 tiles a block), each held against its plain version,
+             and the mechanics / loads / math split;
+8. train_street — 12 steps of ``make_train_step`` on the street scene in
              the production config (K5, K3, K4), GT from the plain forward;
-8. train_bench — 20 steps in the bench.py config (512x512, 32k Gaussians,
+9. train_bench — 20 steps in the bench.py config (512x512, 32k Gaussians,
              padded, K = 384: K5, K1, K2);
-9. train_loop_toy — ``train_loop`` for 300 iterations with densification
+10. train_loop_toy — ``train_loop`` for 300 iterations with densification
              on a 64x64 toy scene (K5, K1, K2);
-10. kernels_street — every kernel timed at the shapes of phases 4, 7, 8;
-11. the kernels line (launches counted on phases 4, 5, 7, 8 and 9 only,
-             error against the plain version, times, bound) and the device
-             line.
+11. train_street_auto — ``tools/train_street`` at full width (1M-row street
+             scene at 960x544, 4 views, GT through the self-sized exact path,
+             a 100k-point start at capacity 262,144) in two invocations of
+             AUTO_SLICE iterations with ``exact_extra=-1`` (the second
+             densifies); between them a checkpoint saved, reloaded and held
+             bit for bit against the state, and 10 steps from each giving
+             bit-identical losses; ``too_far_mask`` card against CPU;
+12. kernels_street — K1-K5 timed at the shapes of phases 4, 8, 9, and K3,
+             K4 at those of phase 11;
+13. the kernels line (launches counted on phases 4, 5, 7, 8, 9, 10 and 11
+             only, error against the plain version, times, bound) and the
+             device line.
 
 Every phase prints one JSON line.  Any failure raises and exits nonzero.
 Without a CUDA card it exits 1 before printing any result.
@@ -43,8 +58,8 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import shutil
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -53,9 +68,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet; dense rates at the 700 W limit).
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
+# H100 SXM special-function rate (NVIDIA data sheet; the memory and f32
+# peaks are profiling.PEAK_BYTES_S / PEAK_FLOP_S).
 SFU_PER_SM_PER_CLK = 16          # special-function results per SM per clock
 FLOPS_PER_EVAL = 20              # f32 ops of one (slot, pixel) blend step
 SFU_PER_EVAL = 2                 # exp(power) and log1p(-alpha) per step
@@ -79,30 +93,11 @@ N_ROWS, N_VIEWS, WIDTH, HEIGHT = 1_000_000, 4, 1920, 1088
 BENCH_N, BENCH_RES = 32768, 512
 SMALL_N, SMALL_W, SMALL_H = 2048, 256, 192
 STREET_STEPS, BENCH_STEPS, WARMUP_STEPS, LOOP_ITERS = 12, 20, 2, 300
+AUTO_SLICE, RESUME_STEPS = 180, 10       # train_street_auto
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def smi(query: str) -> str:
-    return subprocess.run(
-        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-
-
-def event_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def timed_runs(fn, runs: int = TIMED_RUNS):
@@ -122,41 +117,35 @@ def timed_runs(fn, runs: int = TIMED_RUNS):
 
 
 def device_profile(fn) -> dict:
-    """One call of ``fn`` under ``torch.profiler``: wall ms, device busy ms
-    (the kernels' own device-side spans), idle share, and the host ops with
-    the most device self time."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        wall0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - wall0) * 1e3
-    cuda = torch.autograd.DeviceType.CUDA
-    busy_ms = sum(e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == cuda) / 1e3
-    top = sorted((e for e in prof.key_averages() if e.device_type != cuda),
-                 key=lambda e: e.self_device_time_total, reverse=True)[:15]
-    return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "device_idle_share": 1.0 - busy_ms / wall_ms,
-            "top_device_self_ms": [[e.key, e.self_device_time_total / 1e3,
-                                    e.count] for e in top]}
+    """One call of ``fn`` under ``profiling.trace_fn``: wall ms, device
+    busy ms (the kernels' own device-side spans), idle share, and the host
+    ops with the most device self time."""
+    from street_sparse_3dgs_tpu_torch import profiling
+    return profiling.device_summary(profiling.trace_fn(fn, iters=1,
+                                                       warmup=0))
 
 
 class Recorder:
     """Wraps ``module.name`` so every call's arguments and result are kept
-    while the ``with`` block runs (the comparison harness only)."""
+    while the ``with`` block runs (the comparison harness only);
+    ``first_only`` keeps the first call alone, detached, so that no autograd
+    graph outlives its step."""
 
-    def __init__(self, module, name: str):
+    def __init__(self, module, name: str, first_only: bool = False):
         self.module, self.name = module, name
         self.fn = getattr(module, name)
+        self.first_only = first_only
         self.calls: list = []
 
     def __enter__(self):
         def wrapped(*args):
             out = self.fn(*args)
-            self.calls.append((args, out))
+            if not self.first_only:
+                self.calls.append((args, out))
+            elif not self.calls:
+                self.calls.append((tuple(
+                    x.detach() if isinstance(x, torch.Tensor) else x
+                    for x in args), out.detach()))
             return out
 
         setattr(self.module, self.name, wrapped)
@@ -210,12 +199,15 @@ def compare_grads(name: str, got: torch.Tensor, want: torch.Tensor,
 
 def bound(bytes_: int, evals: int, sfu_per_eval: int, flops_per_eval: int,
           sfu_rate: float):
-    """(bound ms, bound_by): the larger of bytes over HBM_BYTES_PER_S and
-    the (slot, pixel) steps walked at ``sfu_per_eval`` special-function
-    results (and ``flops_per_eval`` f32 operations) each."""
-    t_bytes = bytes_ / HBM_BYTES_PER_S
+    """(bound ms, bound_by): the larger of bytes over the card's memory
+    rate and the (slot, pixel) steps walked at ``sfu_per_eval``
+    special-function results (and ``flops_per_eval`` f32 operations)
+    each."""
+    from street_sparse_3dgs_tpu_torch.profiling import (PEAK_BYTES_S,
+                                                        PEAK_FLOP_S)
+    t_bytes = bytes_ / PEAK_BYTES_S
     t_ops = max(evals * sfu_per_eval / sfu_rate,
-                evals * flops_per_eval / FP32_FLOPS)
+                evals * flops_per_eval / PEAK_FLOP_S)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -534,6 +526,154 @@ def train_loop_toy(dev) -> dict:
     return launches
 
 
+def state_leaves(state) -> dict:
+    """{path: tensor} of a (nested) ``TrainState``."""
+    out = {}
+    for k, v in state._asdict().items():
+        if hasattr(v, "_asdict"):
+            out.update({f"{k}.{kk}": vv for kk, vv in state_leaves(v).items()})
+        else:
+            out[k] = v
+    return out
+
+
+def bit_identical(a, b) -> bool:
+    """Every tensor of two states equal, with the same dtype and device."""
+    la, lb = state_leaves(a), state_leaves(b)
+    return la.keys() == lb.keys() and all(
+        la[k].dtype == lb[k].dtype and la[k].device == lb[k].device
+        and torch.equal(la[k], lb[k]) for k in la)
+
+
+def train_street_auto(dev, gt_points: torch.Tensor) -> dict:
+    """The port's ``tools/train_street`` at full width: the 1M-row street
+    scene at its 960x544, 4 views, GT through the self-sized exact path, a
+    100k-point start at capacity 262,144, ``exact_extra=-1``.  Two
+    invocations of ``main`` of AUTO_SLICE iterations each (the second
+    resumes from the first's checkpoint and densifies); between them the
+    checkpoint is saved again, reloaded and held bit for bit against the
+    in-memory state, and RESUME_STEPS steps from each of the two (same
+    ``rng_seed``) must give bit-identical losses.  ``too_far_mask`` over
+    the scene points (the GT cloud, ``gt_points``) and the trained rows:
+    card against CPU, equal.  Returns {"launches": the phase's launches,
+    "calls": one K3 and one K4 call (args, result) at its shapes}."""
+    from street_sparse_3dgs_tpu_torch import native
+    from street_sparse_3dgs_tpu_torch.config import ModelConfig
+    from street_sparse_3dgs_tpu_torch.models import gt_constraint, serialize
+    from street_sparse_3dgs_tpu_torch.ops import autosize
+    from street_sparse_3dgs_tpu_torch.ops import cuda_blend as cb
+    from street_sparse_3dgs_tpu_torch.tools import train_street as ts
+    from street_sparse_3dgs_tpu_torch.train.loop import train_loop
+    t0 = time.perf_counter()
+    run_dir = ROOT / "build" / "smoke" / "train_street"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    base = ["--dir", str(run_dir), "--n", str(N_ROWS), "--views",
+            str(N_VIEWS), "--slice", str(AUTO_SLICE), "--wall", "1e9",
+            "--device", str(dev)]
+    auto_calls = []
+    real_autosize = autosize.autosize_raster
+
+    def timed_autosize(*args, **kw):
+        torch.cuda.synchronize()
+        a0 = time.perf_counter()
+        knobs = real_autosize(*args, **kw)
+        torch.cuda.synchronize()
+        auto_calls.append({"rows": int(args[0].shape[0]),
+                           "ms": (time.perf_counter() - a0) * 1e3,
+                           "knobs": knobs._asdict()})
+        return knobs
+
+    native.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    autosize.autosize_raster = timed_autosize
+    # The tool's progress lines go to stderr: stdout holds the JSON lines.
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            r1 = ts.main(base + ["--iters", str(AUTO_SLICE)])
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            path = run_dir / "between.npz"
+            serialize.save_checkpoint(path, r1["state"], r1["meta"],
+                                      r1["it"])
+            save_s = time.perf_counter() - s0
+            s0 = time.perf_counter()
+            st2, meta2, it2 = serialize.load_checkpoint(path, dev)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - s0
+            tool_ckpt = serialize.load_checkpoint(run_dir / "ckpt.npz",
+                                                  dev)[0]
+            if not (bit_identical(st2, r1["state"]) and meta2 == r1["meta"]
+                    and it2 == r1["it"]
+                    and bit_identical(tool_ckpt, r1["state"])):
+                raise AssertionError("train_street_auto: a reloaded "
+                                     "checkpoint differs from the state")
+            resumed = []
+            for state, meta in ((r1["state"], r1["meta"]), (st2, meta2)):
+                # The blend calls of these steps are kept for the kernels
+                # line (their shapes are this phase's).
+                with Recorder(cb, "blend_exact", first_only=True) as k3, \
+                        Recorder(cb, "blend_exact_bwd", first_only=True) as k4:
+                    _, _, stats = train_loop(
+                        state, meta, r1["batches"], r1["opt"], r1["pipe"],
+                        ModelConfig(), cameras_extent=60.0,
+                        spatial_lr_scale=60.0, iterations=RESUME_STEPS,
+                        densify_enabled=False, rng_seed=r1["it"])
+                resumed.append(stats["losses"])
+            calls = {"blend_exact": k3.calls[0],
+                     "blend_exact_bwd": k4.calls[0]}
+            del k3, k4
+            if resumed[0] != resumed[1]:
+                raise AssertionError(f"train_street_auto: resumed losses "
+                                     f"differ: {resumed}")
+            del tool_ckpt, st2
+            r2 = ts.main(base + ["--iters", str(2 * AUTO_SLICE)])
+    finally:
+        autosize.autosize_raster = real_autosize
+    torch.cuda.synchronize()
+    launches = dict(native.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    for name in ("slab_gather", "blend_exact", "blend_exact_bwd"):
+        if launches[name] == 0:
+            raise AssertionError(f"train_street_auto never launched {name}")
+    records = r1["records"] + r2["records"]
+    if len(records) != 2 or records[1]["it"] != 2 * AUTO_SLICE or \
+            not all(math.isfinite(r["loss"]) for r in records) or \
+            not all(math.isfinite(p) for p in r1["psnrs"] + r2["psnrs"]):
+        raise AssertionError(f"train_street_auto: {records} "
+                             f"{r1['psnrs']} {r2['psnrs']}")
+
+    m0 = time.perf_counter()
+    gt_np = gt_points.cpu().numpy()
+    thr = ModelConfig().constraint_treshold
+    state = r2["state"]
+    mask = gt_constraint.too_far_mask(
+        gt_constraint.build_index(gt_np, thr, device=dev),
+        state.params.xyz, state.active)
+    mask_cpu = gt_constraint.too_far_mask(
+        gt_constraint.build_index(gt_np, thr, device="cpu"),
+        state.params.xyz.cpu(), state.active.cpu())
+    if not torch.equal(mask.cpu(), mask_cpu):
+        raise AssertionError("train_street_auto: too_far_mask differs "
+                             "between the card and the CPU")
+    emit({"phase": "train_street_auto", "seconds": time.perf_counter() - t0,
+          "n": N_ROWS, "width": ts.W, "height": ts.H, "views": N_VIEWS,
+          "init_rows": ts.N_INIT, "init_capacity": ts.CAPACITY,
+          "slices": records, "autosize_calls": auto_calls,
+          "step_ms": [r["wall_per_iter"] * 1e3 for r in records],
+          "psnr_after_slice_1": r1["psnrs"], "psnr_final": r2["psnrs"],
+          "checkpoint_save_s": save_s, "checkpoint_load_s": load_s,
+          "checkpoint_bytes": path.stat().st_size,
+          "capacity_at_checkpoint": r1["meta"].capacity,
+          "reload_bit_identical": True, "resume_steps": RESUME_STEPS,
+          "resume_losses": resumed[0], "resume_losses_bit_identical": True,
+          "too_far_rows": int(mask.sum()), "rows_checked": int(mask.numel()),
+          "active_rows": int(state.active.sum()),
+          "too_far_mask_card_equals_cpu": True,
+          "too_far_seconds": time.perf_counter() - m0,
+          "peak_memory_bytes": peak, "launches": launches})
+    return {"launches": launches, "calls": calls}
+
+
 def grads_small(dev) -> dict:
     """``rasterize`` and its backward on a toy scene (SMALL_N Gaussians,
     SMALL_W x SMALL_H) on the card (kernels) and on the CPU (plain
@@ -582,6 +722,23 @@ def grads_small(dev) -> dict:
                                  f"{overflow}")
         res[cname] = {"grads": per, "tile_overflow": overflow}
     return res
+
+
+def fwd_bound(args, out, exact: bool, sfu_rate: float):
+    """(bound ms, bound_by, live slots, steps) of a forward blend call:
+    bytes = live attrs (10 f32 each) + per-tile int32 metadata + the
+    [T, 8, 256] output; steps = the (slot, pixel) steps the call walked."""
+    if exact:
+        per_tile = tile_pairs(*args[1:4])
+        vec_reads = 2 * args[1].shape[0] + args[3].shape[0]
+    else:
+        per_tile = torch.clamp(args[1].to(torch.int64), max=args[0].shape[2])
+        vec_reads = args[1].shape[0]
+    evals = walked(out, per_tile)
+    live = int(per_tile.sum())
+    ms, by = bound(live * 40 + vec_reads * 4 + out.shape[0] * 8 * 256 * 4,
+                   evals, SFU_PER_EVAL, FLOPS_PER_EVAL, sfu_rate)
+    return ms, by, live, evals
 
 
 def bwd_bound(args, exact: bool, sfu_rate: float):
@@ -634,6 +791,9 @@ def main() -> int:
     from street_sparse_3dgs_tpu_torch.ops.preprocess import project_gaussians
     from street_sparse_3dgs_tpu_torch.ops.rasterize import (RasterConfig,
                                                             rasterize)
+    from street_sparse_3dgs_tpu_torch.profiling import (PEAK_BYTES_S,
+                                                        event_ms, smi)
+    from street_sparse_3dgs_tpu_torch.tools import kernel_floor as kf
 
     if torch.get_float32_matmul_precision() != "highest":
         raise AssertionError("float32 matmuls must run in full precision")
@@ -741,6 +901,35 @@ def main() -> int:
     cmp["terminated_pixels"] = int(
         (saved[:, 6] < tile_pairs(*a[1:4])[:, None]).sum())
     small["K4"] = cmp
+    # D1-D3: the kernel-floor stubs on K3's layout above (multi-window
+    # tiles, an empty window, partial windows, unused budget windows, random
+    # values in the padding lanes) and on a K = 256 layout (two 128-slot
+    # blocks a window), every level in both layouts at 1, 2, 4 and 8 tiles a
+    # block, against the plain versions (levels 0, -1, -2 equal; 2 and 1
+    # within kf.SUM_RTOL of each pixel's sum of |terms|).
+    stub_layouts = {
+        "K=128": (pairs, vcounts, wt, last_v),
+        "K=256": (attrs.permute(0, 2, 1).reshape(-1, 10)[:10 * 256]
+                  .reshape(10, 256, 10).contiguous(),
+                  torch.tensor([256, 200, 0, 129, 5, 256, 256, 60, 0, 0],
+                               dtype=torch.int32),
+                  torch.tensor([0, 1, 0, 0, 0, 0, 1, 2, 0, 0],
+                               dtype=torch.int32),
+                  torch.tensor([1, 2, 3, 4, 7], dtype=torch.int32))}
+    stubs_small = {}
+    for lname, (pm_attrs, vc, w, lv) in stub_layouts.items():
+        for level in kf.LEVELS_D1:
+            for pm in (True, False):
+                a = pm_attrs if pm else pm_attrs.transpose(1, 2).contiguous()
+                args = [x.to(dev) for x in (a, vc, w, lv, bgs[0])]
+                want, terms = kf.blend_exact_stub_plain(*args, 3, level, pm)
+                stubs_small[f"{lname} L{level} "
+                            f"{'pair' if pm else 'channel'}-major"] = max(
+                    kf.stub_error(kf.blend_exact_stub(*args, 3, level, pm,
+                                                      tpb), want, terms,
+                                  level)
+                    for tpb in kf.TILES_PER_BLOCK_D3)
+    small["D1-D3"] = stubs_small
     torch.cuda.synchronize()
     emit({"phase": "kernels_small", "seconds": time.perf_counter() - t0,
           "atol": IMG_ATOL, "grad_bar": GRAD_BAR, "checks": small})
@@ -922,7 +1111,20 @@ def main() -> int:
     emit({"phase": "layers", "seconds": time.perf_counter() - t0,
           "view": 0, "config": "exact", "stage_ms": stages, **prof})
 
-    # ---- 7-9. training (main path, counted) ---------------------------------
+    # ---- 7. kernel floor: K3 against the stubs D1-D3 (main path, counted) -
+    t0 = time.perf_counter()
+    native.reset_launches()
+    floor = kf.measure(street["exact"]["blend"])
+    launches_floor = dict(native.LAUNCHES)
+    if launches_floor["blend_exact_stub"] == 0:
+        raise AssertionError("kernel_floor never launched blend_exact_stub")
+    emit({"phase": "kernel_floor", "seconds": time.perf_counter() - t0,
+          "card": card, "shapes": "street view 0 (phase render's exact "
+          "binning)", "tolerance": f"levels 0, -1, -2 equal; levels 2, 1 "
+          f"within {kf.SUM_RTOL} x sum|terms| per pixel", **floor,
+          "launches": launches_floor})
+
+    # ---- 8-10. training (main path, counted) --------------------------------
     # Street production training: BENCH_street.json / tools/bench_street.py
     # :76-85.  spatial_lr_scale is the cameras' extent (1.1 x the largest
     # distance from their mean centre, as the reference's nerf++ norm).
@@ -946,13 +1148,16 @@ def main() -> int:
                         toy.sh_coeffs), toy.cameras, bench_pipe,
         BENCH_STEPS, 3.3, dev, "blend_padded_bwd", exact_counts=False)
     loop_launches = train_loop_toy(dev)
+    auto_rec = train_street_auto(dev, scene.means3d)
 
-    # ---- 10. kernels at the street shapes of view 0 -----------------------
+    # ---- 12. kernels at the street shapes of view 0 -----------------------
     t0 = time.perf_counter()
     counted = {"render": launches_render, "hierarchy": launches_hier,
+               "kernel_floor": launches_floor,
                "train_street": street_rec["launches"],
                "train_bench": bench_rec["launches"],
-               "train_loop_toy": loop_launches}
+               "train_loop_toy": loop_launches,
+               "train_street_auto": auto_rec["launches"]}
 
     def launches_of(key):
         by = {p: c[key] for p, c in counted.items() if c[key]}
@@ -976,18 +1181,8 @@ def main() -> int:
         ms = event_ms(lambda: kern(*args), 20)
         plain_ms = event_ms(lambda: plain(*args), 2)
         out = rec["blend_out"]
-        if exact:
-            per_tile = tile_pairs(*args[1:4])
-            vec_reads = 2 * args[1].shape[0] + args[3].shape[0]
-        else:
-            per_tile = torch.clamp(args[1].to(torch.int64),
-                                   max=args[0].shape[2])
-            vec_reads = args[1].shape[0]
-        evals = walked(out, per_tile)
-        live = int(per_tile.sum())
-        bound_ms, bound_by = bound(
-            live * 40 + vec_reads * 4 + out.shape[0] * 8 * 256 * 4, evals,
-            SFU_PER_EVAL, FLOPS_PER_EVAL, sfu_rate)
+        bound_ms, bound_by, live, evals = fwd_bound(args, out, exact,
+                                                    sfu_rate)
         cmp = compare_blend(out, rec["plain_out"])
         key = "blend_exact" if exact else "blend_padded"
         kernels.append({
@@ -1039,6 +1234,28 @@ def main() -> int:
             "live_slots": live, "evals": evals, "tiles": args[5 if exact
                                                               else 3].shape[0]})
 
+    # K3 and K4 at the train_street_auto shapes (960x544, its first resume
+    # step): time, bound and agreement with the plain version there too.
+    for key, plain in (("blend_exact", cb.blend_exact_plain),
+                       ("blend_exact_bwd", cb.blend_exact_bwd_plain)):
+        args, out = auto_rec["calls"][key]
+        kern = getattr(cb, key)
+        ms = event_ms(lambda: kern(*args), 20)
+        plain_ms = event_ms(lambda: plain(*args), 2)
+        if key == "blend_exact":
+            cmp = compare_blend(out, plain(*args))
+            check_blend("K3 at train_street_auto", cmp, strict=False)
+            b_ms, b_by, live, evals = fwd_bound(args, out, True, sfu_rate)
+        else:
+            cmp = compare_grads("K4 at train_street_auto", out,
+                                plain(*args), 2)
+            b_ms, b_by, live, evals = bwd_bound(args, True, sfu_rate)
+        entry = next(k for k in kernels if k["name"].endswith(" " + key))
+        entry["at_train_street_auto"] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": cmp["max_abs_err"],
+            "live_slots": live, "evals": evals}
+
     k5_args = ex["k5"]
     sorted_vals, starts, counts_v, k_cap = k5_args[:4]
     ms = event_ms(lambda: binning.slab_gather(*k5_args), 50)
@@ -1062,9 +1279,33 @@ def main() -> int:
             *k5_args)).abs().max()),
         "tolerance": "exactly equal",
         "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": k5_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "bound_ms": k5_bytes / PEAK_BYTES_S * 1e3, "bound_by": "bytes",
         "library_ms": library_ms, "shapes": "street view 0",
         "rows": starts.shape[0], "k": k_cap, "live_slots": live})
+    # D1-D3 at the street shapes of the kernel_floor phase: the headline
+    # variant (level 2; D3 one tile a block) and every variant beside it.
+    for probe, replaces in (("D1", "tools/kernel_floor_tpu.py:40"),
+                            ("D2", "tools/kernel_floor_tpu.py:113"),
+                            ("D3", "tools/kernel_floor_tpu.py:317")):
+        recs = [r for r in floor["stubs"] if r["probe"] == probe]
+        head = recs[0]
+        n_launch = sum(r["launches"] for r in recs)
+        kernels.append({
+            "name": f"{probe} blend_exact_stub", "route": "cuda",
+            "source": "street_sparse_3dgs_tpu_torch/csrc/blend_exact_stub.cu",
+            "replaces": replaces, "launches": n_launch,
+            "launches_by_phase": {"kernel_floor": n_launch},
+            "max_abs_err": max(r["max_abs_err"] for r in recs),
+            "max_err_over_sum_terms": max(r["max_err_over_sum_terms"]
+                                          for r in recs),
+            "tolerance": f"levels 0, -1, -2 equal; levels 2, 1 within "
+                         f"{kf.SUM_RTOL} x sum|terms| per pixel",
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": None, "shapes": "street view 0",
+            "headline": (f"level {head['level']}, {head['layout']}, "
+                         f"{head['tiles_per_block']} tile(s) a block"),
+            "variants": recs})
     torch.cuda.synchronize()
     emit({"phase": "kernels_street", "seconds": time.perf_counter() - t0,
           "card": card})

@@ -40,7 +40,8 @@ class ModelConfig:
 class PipelineConfig:
     """Renderer knobs.  ``raster_method="pallas"`` selects the CUDA kernels;
     ``exact_extra`` > 0 is exact (virtual-tile) mode, 0 padded mode, and -1
-    (self-sizing) waits for the port of ``ops/autosize.py``."""
+    self-sizing exact mode (the train loop measures the knobs with
+    ``ops/autosize.py``)."""
 
     debug: bool = False
     raster_method: str = "tiled"     # "tiled" | "oracle" | "pallas"

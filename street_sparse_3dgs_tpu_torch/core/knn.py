@@ -52,7 +52,10 @@ def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
 _PRIMES = (73856093, 19349669, 83492791)
 
 
-def _cell_key(cell: torch.Tensor) -> torch.Tensor:
+def cell_key(cell: torch.Tensor) -> torch.Tensor:
+    """[N, 3] integer cells -> int32 spatial hash: the 64-bit XOR of the
+    coordinates times three primes, wrapped to 32 bits (the JAX package's
+    int32 wrap-around multiply and its host-side 64->32 truncation)."""
     c = cell.to(torch.int64)
     return _wrap_i32((c[:, 0] * _PRIMES[0]) ^ (c[:, 1] * _PRIMES[1])
                      ^ (c[:, 2] * _PRIMES[2]))
@@ -74,7 +77,7 @@ def grid_mean_sq_dist_to_3nn(points: torch.Tensor,
         lo, hi = p_np.min(0), p_np.max(0)
         vol = float(np.prod(np.maximum(hi - lo, 1e-6)))
         cell_size = 2.0 * (vol / max(n, 1)) ** (1.0 / 3.0)
-    keys = _cell_key(torch.floor(pts / cell_size))
+    keys = cell_key(torch.floor(pts / cell_size))
     order = torch.sort(keys, stable=True).indices
     pts_sorted = pts[order]
     uniq, count = torch.unique_consecutive(keys[order], return_counts=True)
@@ -92,7 +95,7 @@ def grid_mean_sq_dist_to_3nn(points: torch.Tensor,
         base = torch.floor(xb / cell_size).to(torch.int64)
         best = torch.full((xb.shape[0], 4), float("inf"), device=dev)
         for off in offsets:
-            key = _cell_key(base + off)
+            key = cell_key(base + off)
             pos = torch.clamp(torch.searchsorted(uniq, key),
                               max=uniq.shape[0] - 1)
             hit = uniq[pos] == key

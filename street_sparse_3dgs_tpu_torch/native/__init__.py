@@ -25,7 +25,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNELS = ("blend_padded", "blend_exact", "slab_gather", "blend_padded_bwd",
-           "blend_exact_bwd")
+           "blend_exact_bwd", "blend_exact_stub")
 # No --use_fast_math (expf/log1pf stay the accurate versions) and no FMA
 # contraction (-fmad=false): every product rounds on its own, as in the
 # plain PyTorch versions, so a slot whose alpha sits on the 1/255 skip
@@ -52,6 +52,9 @@ _ARGTYPES = {
     # attrs, vcounts, wt, last_v, bg, T, K, tiles_x, t_mod, saved, g_out,
     # d_attrs, stream
     "blend_exact_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    # attrs, vcounts, wt, last_v, bg, T, K, tiles_x, level, pair_major,
+    # tiles_per_block, out, stream
+    "blend_exact_stub": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
 }
 _libs: dict[str, ctypes.CDLL] = {}
 

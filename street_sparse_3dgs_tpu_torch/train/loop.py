@@ -11,40 +11,56 @@ applies the cadenced side effects of the reference (``train_single.py:
   zeroed;
 - the big-Gaussian clamp, fused into the step;
 - in exact mode, growth of the window budget ``exact_extra`` when a step
-  overflowed it.
+  overflowed it;
+- self-sizing: ``exact_extra == -1`` is resolved into measured knobs
+  (``autosize_pipeline``, ``ops/autosize``) before the first step and again
+  after every capacity growth; ``stats["final_pipe"]`` holds the resolved
+  config;
+- the GT point-cloud constraint: with a ``gt_index``
+  (``models/gt_constraint``), each densify round also prunes the rows it
+  finds too far from the GT cloud;
+- checkpoints at ``hooks.checkpoint_iterations``: the ``on_checkpoint``
+  hook, or without one ``model_path/chkpnt{it}.npz``
+  (``models/serialize.save_checkpoint``).
 
 The budget grows from the LARGEST single-step ``tile_overflow`` since the
 last check (a running ``torch.maximum`` on the device), not from the sum of
 the overflows over the check window, which overshoots after a burst of
-overflowing steps.  Self-sizing (``exact_extra == -1``, ``ops/autosize``)
-and the GT point-cloud constraint (``models/gt_constraint``) wait for a
-later slice of the port and raise ``NotImplementedError``.
+overflowing steps.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
+from pathlib import Path
 from typing import Callable, Iterable
 
 import torch
 
 from ..config import ModelConfig, OptimizationConfig, PipelineConfig
 from ..models import adam, densify
-from ..models.gaussians import GaussianMeta, GaussianParams
+from ..models.gaussians import (GaussianMeta, GaussianParams,
+                                activate_opacity, activate_scales, sh_coeffs)
+from ..models.gt_constraint import too_far_mask
+from ..models.serialize import save_checkpoint
+from ..ops import autosize
 from ..utils import EmaMeter
 from .step import CameraBatch, TrainState, make_train_step
 
 
 def densify_state(state: TrainState, noise: torch.Tensor, meta: GaussianMeta,
                   grad_threshold: float, min_opacity: float, extent: float,
-                  percent_dense: float):
+                  percent_dense: float,
+                  extra_prune: torch.Tensor | None = None):
     """One densify/prune round on a train state: (new state, n_active,
-    overflow)."""
+    overflow).  ``extra_prune`` [C] marks more rows to prune."""
     res = densify.densify_and_prune(
         noise, state.params, state.active, state.adam_state,
         densify.DensifyState(state.grad_accum, state.denom,
                              state.max_radii2d),
-        meta, grad_threshold, min_opacity, extent, percent_dense)
+        meta, grad_threshold, min_opacity, extent, percent_dense,
+        extra_prune=extra_prune)
     return (state._replace(params=res.params, active=res.active,
                            adam_state=res.adam_state,
                            grad_accum=res.densify_state.grad_accum,
@@ -112,6 +128,40 @@ def grown_budget(exact_extra: int, max_step_overflow: int,
     return -(-grown // 128) * 128
 
 
+def autosize_pipeline(pipe: PipelineConfig, state: TrainState,
+                      meta: GaussianMeta, batches,
+                      max_views: int = 8) -> PipelineConfig:
+    """Resolve ``exact_extra == -1`` (self-sizing) into measured knobs: the
+    emission ladder and window budget of ``ops/autosize.autosize_raster``
+    over the first ``max_views`` cameras of ``batches``, which must be
+    re-iterable (a list): sampling a one-shot iterator would take its first
+    views from the training stream.  The scan window is bounded by the
+    capacity, so the [capacity, S] emission arrays stay near 2^28
+    elements."""
+    if iter(batches) is batches:
+        raise TypeError("autosize needs a re-iterable batch stream (such as "
+                        "a list), not an iterator: sampling would consume "
+                        "its first views")
+    sample = list(itertools.islice(iter(batches), max_views))
+    if not sample:
+        raise ValueError("autosize: empty batch stream")
+    cams = [b.camera for b in sample]
+    cap_max = int(min(256, max(32, (1 << 28) // meta.capacity)))
+    knobs = autosize.autosize_raster(
+        state.params.xyz, activate_scales(state.params), state.params.quats,
+        activate_opacity(state.params, meta), sh_coeffs(state.params), cams,
+        meta.sh_degree, cams[0].height, cams[0].width, pipe.tile_capacity,
+        max_dup=0, active_mask=state.active, scan_cap_max=cap_max)
+    print(f"  autosized exact mode: max_dup={knobs.max_dup} "
+          f"overscan={knobs.dup_overscan} tails={knobs.dup_tails} "
+          f"exact_extra={knobs.exact_extra} "
+          f"(measured extras={knobs.expected_extras}, "
+          f"dup_of={knobs.expected_dup_overflow})")
+    return dataclasses.replace(
+        pipe, max_dup=knobs.max_dup, dup_overscan=knobs.dup_overscan,
+        dup_tails=knobs.dup_tails, exact_extra=knobs.exact_extra)
+
+
 @dataclasses.dataclass
 class LoopHooks:
     """Optional host callbacks."""
@@ -143,20 +193,19 @@ def train_loop(
     """Run the optimisation loop over ``batches`` (re-iterated when
     exhausted) for ``iterations`` steps.  Random draws (backgrounds, split
     noise) come from generators seeded with ``rng_seed`` on the state's
-    device.  Returns (state, meta, stats)."""
-    if pipe.raster_method == "pallas" and pipe.exact_extra == -1:
-        raise NotImplementedError(
-            "exact_extra == -1 (self-sizing exact mode) needs ops/autosize, "
-            "which a later slice of the port brings; pass an explicit "
-            "budget such as exact_extra=9216")
-    if gt_index is not None:
-        raise NotImplementedError(
-            "the GT point-cloud constraint (models/gt_constraint) comes "
-            "with a later slice of the port")
+    device.  ``gt_index`` (``models.gt_constraint.GtIndex``) adds the GT
+    point-cloud prune to every densify round.  Returns (state, meta,
+    stats)."""
     iterations = iterations or opt.iterations
     dev = state.params.xyz.device
     noise_gen = torch.Generator(device=dev).manual_seed(rng_seed)
     bg_gen = torch.Generator(device=dev).manual_seed(rng_seed + 17)
+
+    auto_mode = pipe.raster_method == "pallas" and pipe.exact_extra == -1
+    if auto_mode:
+        # Resolved before exact_on is read: a self-sized run checks its
+        # budget like any exact run.
+        pipe = autosize_pipeline(pipe, state, meta, batches)
 
     ema = EmaMeter()
     progress_every = max(1, min(500, iterations // 10))
@@ -249,15 +298,23 @@ def train_loop(
                 and it % opt.densification_interval == 0):
             noise = torch.randn((2, meta.capacity, 3), generator=noise_gen,
                                 device=dev)
+            extra_prune = None
+            if gt_index is not None:
+                extra_prune = too_far_mask(gt_index, state.params.xyz,
+                                           state.active)
             state, n_active, overflow = densify_state(
                 state, noise, meta, opt.densify_grad_threshold, 0.005,
-                float(cameras_extent), opt.percent_dense)
+                float(cameras_extent), opt.percent_dense, extra_prune)
             overflow = int(overflow)
             if overflow > 0:
                 stats["overflows"] += 1
                 state, meta = grow_capacity(
                     state, meta, max(meta.capacity * 2,
                                      meta.capacity + overflow))
+                if auto_mode:
+                    # Densification moved the splat sizes and the capacity
+                    # bound of the scan window: measure the knobs again.
+                    pipe = autosize_pipeline(pipe, state, meta, batches)
                 steps.clear()
             stats["n_active"].append(int(n_active))
             if hooks.on_densify is not None:
@@ -270,12 +327,11 @@ def train_loop(
             state = reset_opacity_state(state, meta)
 
         if it in hooks.checkpoint_iterations:
-            if hooks.on_checkpoint is None:
-                raise NotImplementedError(
-                    "checkpoints without on_checkpoint need "
-                    "models/serialize, which a later slice of the port "
-                    "brings")
-            hooks.on_checkpoint(it, state, meta)
+            if hooks.on_checkpoint is not None:
+                hooks.on_checkpoint(it, state, meta)
+            elif model_cfg.model_path:
+                save_checkpoint(Path(model_cfg.model_path)
+                                / f"chkpnt{it}.npz", state, meta, it)
 
     drain_losses()
     stats["dup_overflow"] = int(dup_acc)

@@ -481,8 +481,9 @@ def test_train_loop_with_densify_matches_jax_cadence():
 
 def test_train_loop_budget_grows_from_worst_step():
     """Exact-mode budget growth reads the worst single step's overflow,
-    not the sum over the check window; self-sizing and the GT constraint
-    name the later slice."""
+    not the sum over the check window; the self-sizing sentinel resolves
+    to a budget before the first step (tests/test_torch_autosize.py holds
+    its knobs against JAX's)."""
     assert tloop.grown_budget(64, 300, 128) == 128
     assert tloop.grown_budget(512, 200_000, 128) == 2176
     params, active, meta, batches = big_splats()
@@ -491,11 +492,13 @@ def test_train_loop_budget_grows_from_worst_step():
         fields(jstep.init_state(params, active, len(batches))), "cpu")
     tb = [convert.camera_batch_from_numpy(fields(b), "cpu") for b in batches]
     opt = tcfg.OptimizationConfig(iterations=4)
-    for pipe, kw in ((dict(raster_method="pallas", exact_extra=-1), {}),
-                     (dict(tile_capacity=600), dict(gt_index=object()))):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            tloop.train_loop(state, tm, tb, opt, tcfg.PipelineConfig(**pipe),
-                             tcfg.ModelConfig(), 3.0, 1.0, **kw)
+    _, _, stats = tloop.train_loop(
+        state, tm, tb, opt, tcfg.PipelineConfig(**dict(
+            EXACT, exact_extra=-1)), tcfg.ModelConfig(), 3.0, 1.0,
+        densify_enabled=False, clamp_fraction=1.0)
+    auto = stats["final_pipe"]
+    assert auto.exact_extra > 0 and auto.exact_extra % 128 == 0
+    assert auto.max_dup in (2, 4, 8, 16) and stats["skipped_updates"] == 0
     _, _, stats = tloop.train_loop(
         state, tm, tb, opt, tcfg.PipelineConfig(**dict(
             EXACT, exact_extra=1, max_dup=64)), tcfg.ModelConfig(), 3.0, 1.0,
