@@ -10,9 +10,11 @@ against its plain PyTorch version:
 1. build   — compile ``street_sparse_3dgs_tpu_torch/csrc/*.cu`` (one nvcc per
              source, in parallel) into the ignored ``build/kernels/``;
 2. kernels_small — K1 (padded blend), K2 (its backward), K3 (exact blend),
-             K4 (its backward), K5 (slab gather) and the kernel-floor stubs
-             D1-D3 on small inputs against their plain versions; K2 and K4
-             launched twice (bit-identical);
+             K4 (its backward), K5 (slab gather, with its edge cases: K in
+             {128, 384, 1024, 100}, empty rows, rows over K, segments flush
+             with the end of the keys) and the kernel-floor stubs D1-D3 on
+             small inputs against their plain versions; K2 and K4 launched
+             twice (bit-identical), K4 also in another tile order (equal);
 3. grads_small — ``rasterize`` and its backward on a toy scene in the
              padded and the exact+counts config, on the card (kernels) and
              on the CPU (plain versions);
@@ -44,7 +46,11 @@ against its plain PyTorch version:
              bit for bit against the state, and 10 steps from each giving
              bit-identical losses; ``too_far_mask`` card against CPU;
 12. kernels_street — K1-K5 timed at the shapes of phases 4, 8, 9, and K3,
-             K4 at those of phase 11;
+             K4 at those of phase 11: ``ms`` is device time
+             (``profiling.device_ms``), ``wall_ms`` the events around
+             back-to-back calls, host cost included; K4 launched twice
+             (bit-identical) and over its deepest tile alone (its share of
+             the launch);
 13. the kernels line (launches counted on phases 4, 5, 7, 8, 9, 10 and 11
              only, error against the plain version, times, bound) and the
              device line.
@@ -94,6 +100,7 @@ BENCH_N, BENCH_RES = 32768, 512
 SMALL_N, SMALL_W, SMALL_H = 2048, 256, 192
 STREET_STEPS, BENCH_STEPS, WARMUP_STEPS, LOOP_ITERS = 12, 20, 2, 300
 AUTO_SLICE, RESUME_STEPS = 180, 10       # train_street_auto
+K5_EDGE_KS = (128, 384, 1024, 100)
 
 
 def emit(obj) -> None:
@@ -768,6 +775,33 @@ def bwd_bound(args, exact: bool, sfu_rate: float):
     return ms, by, live, evals
 
 
+def k4_checks(args, ms: float) -> dict:
+    """K4 on recorded inputs ``args``: two launches bit-identical, and the
+    deepest tile (the first of ``exact_bwd_order``) launched alone
+    (``order=[deepest]``, one block): its windows' grads equal the full
+    launch's and no other window gets any.  Returns the deepest tile's
+    windows, slots, device ms and share of the full launch's ``ms``."""
+    from street_sparse_3dgs_tpu_torch.ops import cuda_blend as cb
+    from street_sparse_3dgs_tpu_torch.profiling import device_ms
+    _, vcounts, wt, last_v = args[:4]
+    full = cb.blend_exact_bwd(*args)
+    if not torch.equal(full, cb.blend_exact_bwd(*args)):
+        raise AssertionError("K4: two launches differ")
+    deep = cb.exact_bwd_order(wt, last_v)[:1].contiguous()
+    t = int(deep[0])
+    v_last = int(last_v[t])
+    v_first = v_last - int(wt[v_last])
+    alone = cb.blend_exact_bwd(*args, order=deep)
+    if not (torch.equal(alone[v_first:v_last + 1], full[v_first:v_last + 1])
+            and not alone[:v_first].any() and not alone[v_last + 1:].any()):
+        raise AssertionError("K4: the deepest tile launched alone differs "
+                             "from the full launch")
+    deep_ms = device_ms(lambda: cb.blend_exact_bwd(*args, order=deep), 10)
+    return {"tile": t, "windows": v_last - v_first + 1,
+            "slots": int(tile_pairs(vcounts, wt, last_v)[t]),
+            "ms": deep_ms, "share_of_launch": deep_ms / ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -792,7 +826,8 @@ def main() -> int:
     from street_sparse_3dgs_tpu_torch.ops.rasterize import (RasterConfig,
                                                             rasterize)
     from street_sparse_3dgs_tpu_torch.profiling import (PEAK_BYTES_S,
-                                                        event_ms, smi)
+                                                        device_ms, event_ms,
+                                                        smi)
     from street_sparse_3dgs_tpu_torch.tools import kernel_floor as kf
 
     if torch.get_float32_matmul_precision() != "highest":
@@ -855,7 +890,26 @@ def main() -> int:
     if not torch.equal(binning.slab_gather(*a, 256, 12, 5000),
                        binning.slab_gather_plain(*a, 256, 12, 5000)):
         raise AssertionError("K5 small: kernel table differs from plain")
-    small["K5"] = "equal"
+    # K5 edges: 21 rows (not a multiple of the kernel's 8 a block), empty
+    # rows (budget windows no tile uses), rows over K, and the last two
+    # segments flush with the end of vals (one of exactly K keys, one
+    # ending inside a 4-slot group); K = 100 is not a multiple of 128.
+    for k_cap in K5_EDGE_KS:
+        m, t_rows = 9000, 21
+        vals = torch.sort(torch.randint(0, 1 << 40, (m,), generator=g)).values
+        starts = torch.randint(0, m - 2 * k_cap, (t_rows,), generator=g)
+        cnts = torch.randint(0, 2 * k_cap, (t_rows,), generator=g)
+        cnts[::5] = 0
+        cnts[1::5] = 2 * k_cap
+        starts[-2:] = torch.tensor([m - k_cap, m - k_cap // 2 - 3])
+        cnts[-2:] = torch.tensor([k_cap, k_cap // 2 + 3])
+        a = [x.to(dev) for x in (vals, starts.to(torch.int32),
+                                 cnts.to(torch.int32))]
+        if not torch.equal(binning.slab_gather(*a, k_cap, 12, m),
+                           binning.slab_gather_plain(*a, k_cap, 12, m)):
+            raise AssertionError(f"K5 edges at K = {k_cap}: kernel table "
+                                 "differs from plain")
+    small["K5"] = f"equal (K = 256; edges at K = {list(K5_EDGE_KS)})"
     # K2 / K4: each kernel's backward on the saved rows of its forward and a
     # random cotangent, against the plain backward on the same saved rows,
     # launched twice (bit-identical).  Terminate bait in tiles 0-5: forty
@@ -898,6 +952,9 @@ def main() -> int:
         raise AssertionError("K4 small: two launches differ")
     if d1[12:].any():
         raise AssertionError("K4 small: a budget window got a grad")
+    rev = torch.arange(4, -1, -1, dtype=torch.int32, device=dev)
+    if not torch.equal(cb.blend_exact_bwd(*a, saved, go, 3, order=rev), d1):
+        raise AssertionError("K4 small: the launch order moved a grad")
     cmp["terminated_pixels"] = int(
         (saved[:, 6] < tile_pairs(*a[1:4])[:, None]).sum())
     small["K4"] = cmp
@@ -1178,7 +1235,8 @@ def main() -> int:
         exact = name.startswith("K3")
         kern = cb.blend_exact if exact else cb.blend_padded
         plain = cb.blend_exact_plain if exact else cb.blend_padded_plain
-        ms = event_ms(lambda: kern(*args), 20)
+        ms = device_ms(lambda: kern(*args), 20)
+        wall_ms = event_ms(lambda: kern(*args), 20)
         plain_ms = event_ms(lambda: plain(*args), 2)
         out = rec["blend_out"]
         bound_ms, bound_by, live, evals = fwd_bound(args, out, exact,
@@ -1197,8 +1255,8 @@ def main() -> int:
             "max_err_without_flips": cmp["max_err_without_flips"],
             "tolerance": f"{IMG_ATOL} on rows RGB/invdepth/alpha/logT at "
                          f"all but {FLIP_SHARE} of the pixels",
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None,
+            "ms": ms, "wall_ms": wall_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "shapes": "street view 0", "live_slots": live, "evals": evals,
             "tiles": out.shape[0]})
 
@@ -1216,7 +1274,8 @@ def main() -> int:
         args, out = rec["args"], rec["out"]
         kern = getattr(cb, key)
         exact = key == "blend_exact_bwd"
-        ms = event_ms(lambda: kern(*args), 20)
+        ms = device_ms(lambda: kern(*args), 20)
+        wall_ms = event_ms(lambda: kern(*args), 20)
         plain_ms = event_ms(lambda: plain(*args), 2)
         cmp = compare_grads(f"{name} at {shapes}", out, plain(*args),
                             2 if exact else 1)
@@ -1229,10 +1288,12 @@ def main() -> int:
             "max_scaled_err": cmp["max_scaled_err"],
             "tolerance": f"{GRAD_BAR} x max|g| per channel, on the same "
                          "saved forward rows",
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None, "shapes": shapes,
-            "live_slots": live, "evals": evals, "tiles": args[5 if exact
-                                                              else 3].shape[0]})
+            "ms": ms, "wall_ms": wall_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "shapes": shapes, "live_slots": live, "evals": evals,
+            "tiles": args[5 if exact else 3].shape[0],
+            **({"bit_identical_reruns": True,
+                "deepest_tile": k4_checks(args, ms)} if exact else {})})
 
     # K3 and K4 at the train_street_auto shapes (960x544, its first resume
     # step): time, bound and agreement with the plain version there too.
@@ -1240,7 +1301,7 @@ def main() -> int:
                        ("blend_exact_bwd", cb.blend_exact_bwd_plain)):
         args, out = auto_rec["calls"][key]
         kern = getattr(cb, key)
-        ms = event_ms(lambda: kern(*args), 20)
+        ms = device_ms(lambda: kern(*args), 20)
         plain_ms = event_ms(lambda: plain(*args), 2)
         if key == "blend_exact":
             cmp = compare_blend(out, plain(*args))
@@ -1255,16 +1316,21 @@ def main() -> int:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "max_abs_err": cmp["max_abs_err"],
             "live_slots": live, "evals": evals}
+        if key == "blend_exact_bwd":
+            entry["at_train_street_auto"]["deepest_tile"] = k4_checks(args,
+                                                                      ms)
 
     k5_args = ex["k5"]
     sorted_vals, starts, counts_v, k_cap = k5_args[:4]
-    ms = event_ms(lambda: binning.slab_gather(*k5_args), 50)
+    ms = device_ms(lambda: binning.slab_gather(*k5_args), 50)
+    wall_ms = event_ms(lambda: binning.slab_gather(*k5_args), 50)
     plain_ms = event_ms(lambda: binning.slab_gather_plain(*k5_args), 5)
     padded = torch.cat([sorted_vals, torch.zeros(k_cap, dtype=torch.int64,
                                                  device=dev)])
     idx = (starts.to(torch.int64)[:, None]
            + torch.arange(k_cap, device=dev)[None, :])
-    library_ms = event_ms(lambda: padded[idx], 50)
+    library_ms = device_ms(lambda: padded[idx], 50)
+    library_wall_ms = event_ms(lambda: padded[idx], 50)
     live = int(torch.clamp(counts_v, max=k_cap).sum())
     k5_bytes = live * 8 + starts.shape[0] * 8 + starts.shape[0] * k_cap * 4
     kernels.append({
@@ -1278,9 +1344,10 @@ def main() -> int:
         "max_abs_err": float((ex["k5_out"] - binning.slab_gather_plain(
             *k5_args)).abs().max()),
         "tolerance": "exactly equal",
-        "ms": ms, "plain_ms": plain_ms,
+        "ms": ms, "wall_ms": wall_ms, "plain_ms": plain_ms,
         "bound_ms": k5_bytes / PEAK_BYTES_S * 1e3, "bound_by": "bytes",
-        "library_ms": library_ms, "shapes": "street view 0",
+        "library_ms": library_ms, "library_wall_ms": library_wall_ms,
+        "shapes": "street view 0",
         "rows": starts.shape[0], "k": k_cap, "live_slots": live})
     # D1-D3 at the street shapes of the kernel_floor phase: the headline
     # variant (level 2; D3 one tile a block) and every variant beside it.

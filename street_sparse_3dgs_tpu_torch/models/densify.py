@@ -15,6 +15,7 @@ from . import adam
 from .gaussians import (GaussianMeta, GaussianParams, activate_opacity,
                         inverse_sigmoid)
 from ..core.quaternion import to_rotation_matrix
+from ..device import DEFAULT_DEVICE, resolve_device
 
 
 class DensifyState(NamedTuple):
@@ -23,9 +24,12 @@ class DensifyState(NamedTuple):
     max_radii2d: torch.Tensor   # [C] max pixel radius seen
 
 
-def init(capacity: int, device: torch.device | str = "cpu") -> DensifyState:
+def init(capacity: int,
+         device: torch.device | str = DEFAULT_DEVICE) -> DensifyState:
+    dev = resolve_device(device)
+
     def z():
-        return torch.zeros((capacity,), dtype=torch.float32, device=device)
+        return torch.zeros((capacity,), dtype=torch.float32, device=dev)
 
     return DensifyState(z(), z(), z())
 

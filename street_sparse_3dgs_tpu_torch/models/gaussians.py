@@ -19,6 +19,7 @@ import torch
 
 from ..core import sh as shlib
 from ..core.knn import mean_sq_dist_to_3nn_auto
+from ..device import DEFAULT_DEVICE, resolve_device
 
 
 def inverse_sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -214,12 +215,12 @@ def pad_to_capacity(params: GaussianParams, n_active: int, capacity: int):
 
 
 def frozen_mask(meta: GaussianMeta, capacity: int,
-                device: torch.device | str = "cpu") -> torch.Tensor:
+                device: torch.device | str = DEFAULT_DEVICE) -> torch.Tensor:
     """[C] rows whose grads the training loops zero: the scaffold block in
     chunk training or the locked skybox."""
     n = meta.scaffold_points if meta.scaffold_points > 0 else (
         meta.skybox_points if meta.skybox_locked else 0)
-    return torch.arange(capacity, device=device) < n
+    return torch.arange(capacity, device=resolve_device(device)) < n
 
 
 # ---------------------------------------------------------------------------
@@ -227,9 +228,10 @@ def frozen_mask(meta: GaussianMeta, capacity: int,
 
 
 def init_exposure(n_images: int,
-                  device: torch.device | str = "cpu") -> torch.Tensor:
+                  device: torch.device | str = DEFAULT_DEVICE
+                  ) -> torch.Tensor:
     """[n_images, 3, 4] identity affine colour transforms."""
-    eye = torch.eye(3, 4, dtype=torch.float32, device=device)
+    eye = torch.eye(3, 4, dtype=torch.float32, device=resolve_device(device))
     return eye.expand(n_images, 3, 4).clone()
 
 

@@ -49,14 +49,15 @@ _ARGTYPES = {
     # attrs, counts, bg, bg_per_tile, T, K, tiles_x, tile0, t_mod, saved,
     # g_out, d_attrs, stream
     "blend_padded_bwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
-    # attrs, vcounts, wt, last_v, bg, T, K, tiles_x, t_mod, saved, g_out,
-    # d_attrs, stream
-    "blend_exact_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    # attrs, vcounts, wt, last_v, order, bg, len(order), K, tiles_x, t_mod,
+    # saved, g_out, d_attrs, stream
+    "blend_exact_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+                        _P],
     # attrs, vcounts, wt, last_v, bg, T, K, tiles_x, level, pair_major,
     # tiles_per_block, out, stream
     "blend_exact_stub": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
 }
-_libs: dict[str, ctypes.CDLL] = {}
+_fns: dict = {}
 
 
 def reset_launches() -> None:
@@ -124,28 +125,30 @@ def build() -> dict:
             "ptxas": ptxas}
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if missing."""
-    lib = _libs.get(name)
-    if lib is None:
+def launcher(name: str):
+    """The C entry point ``<name>_launch`` of kernel ``name``, its library
+    built first if missing and loaded once."""
+    fn = _fns.get(name)
+    if fn is None:
         path = library_path(name)
         if not path.exists():
             build()
-        lib = ctypes.CDLL(str(path))
-        fn = getattr(lib, f"{name}_launch")
+        fn = getattr(ctypes.CDLL(str(path)), f"{name}_launch")
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
-        _libs[name] = lib
-    return lib
+        _fns[name] = fn
+    return fn
 
 
 def launch(name: str, *args) -> None:
     """Launch kernel ``name`` on PyTorch's current CUDA stream, raise if the
-    launch was refused, and count it."""
+    launch was refused, and count it.  The stream is read as a raw handle
+    (``torch.cuda.current_stream()`` builds a Python object per call, a
+    host cost that a few-microsecond kernel would feel)."""
     import torch
 
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = getattr(library(name), f"{name}_launch")(*args, stream)
+    stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+    rc = launcher(name)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {rc}")

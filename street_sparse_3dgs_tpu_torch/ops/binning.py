@@ -136,24 +136,24 @@ def slab_gather(sorted_vals: torch.Tensor, starts: torch.Tensor,
     ``sorted_vals[starts[t] + k]`` when k < min(counts[t], K), else
     ``sentinel``.  Launches ``csrc/slab_gather.cu`` on CUDA tensors; runs
     ``slab_gather_plain`` on CPU tensors."""
+    dev = sorted_vals.device
     for name, x, dt in (("sorted_vals", sorted_vals, torch.int64),
                         ("starts", starts, torch.int32),
                         ("counts", counts, torch.int32)):
         if x.dtype != dt or x.dim() != 1 or not x.is_contiguous() or \
-                x.device != sorted_vals.device:
+                x.device != dev:
             raise ValueError(f"slab_gather: {name} must be a contiguous 1-d "
-                             f"{dt} tensor on {sorted_vals.device}, got "
+                             f"{dt} tensor on {dev}, got "
                              f"{x.dtype} {tuple(x.shape)} on {x.device}")
-    if starts.shape != counts.shape:
-        raise ValueError("slab_gather: starts and counts differ in shape")
-    if sorted_vals.device.type == "cpu":
-        return slab_gather_plain(sorted_vals, starts, counts, k_cap,
-                                 rank_bits, sentinel)
-    if not sorted_vals.is_cuda:
-        raise RuntimeError(f"slab_gather: no kernel for {sorted_vals.device}")
     t = starts.shape[0]
-    out = torch.empty((t, k_cap), dtype=torch.int32,
-                      device=sorted_vals.device)
+    if counts.shape[0] != t:
+        raise ValueError("slab_gather: starts and counts differ in shape")
+    if not sorted_vals.is_cuda:
+        if dev.type == "cpu":
+            return slab_gather_plain(sorted_vals, starts, counts, k_cap,
+                                     rank_bits, sentinel)
+        raise RuntimeError(f"slab_gather: no kernel for {dev}")
+    out = torch.empty((t, k_cap), dtype=torch.int32, device=dev)
     native.launch("slab_gather", sorted_vals.data_ptr(), starts.data_ptr(),
                   counts.data_ptr(), t, k_cap, (1 << rank_bits) - 1,
                   sentinel, out.data_ptr())

@@ -10,7 +10,8 @@ slots, and ``blend_tiles_pallas`` blends them with
   (``csrc/blend_padded_bwd.cu``);
 - K3 ``blend_exact`` (``csrc/blend_exact.cu``): attrs pair-major
   [T_v, K, 10] over virtual tiles, one block per REAL tile looping over its
-  windows; its backward is K4 (``csrc/blend_exact_bwd.cu``).
+  windows; its backward is K4 (``csrc/blend_exact_bwd.cu``), which takes
+  the tiles deepest first (``exact_bwd_order``).
 
 The forwards return the packed [T, 8, 256] rows R, G, B, invdepth, alpha,
 log T, n_contrib, pad; the backwards take those saved rows and the
@@ -343,15 +344,28 @@ def blend_padded_bwd(attrs: torch.Tensor, counts: torch.Tensor,
     return d
 
 
+def exact_bwd_order(wt: torch.Tensor, last_v: torch.Tensor) -> torch.Tensor:
+    """K4's launch order: the real tiles [T] int32 by window count
+    (``wt[last_v] + 1``), deepest first, ties in tile order (a stable
+    sort), so the tiles with the most windows do not start last."""
+    windows = wt[last_v.to(torch.int64)] + 1
+    order = torch.sort(windows, descending=True, stable=True).indices
+    return order.to(torch.int32)
+
+
 def blend_exact_bwd(attrs: torch.Tensor, vcounts: torch.Tensor,
                     wt: torch.Tensor, last_v: torch.Tensor, bg: torch.Tensor,
                     saved: torch.Tensor, g_out: torch.Tensor, tiles_x: int,
-                    t_mod: int = 0) -> torch.Tensor:
+                    t_mod: int = 0,
+                    order: torch.Tensor | None = None) -> torch.Tensor:
     """K4.  The inputs of K3 plus its saved per-real-tile output and the
     cotangent ``g_out`` [T, 8, 256] f32.  Returns the pair-major per-slot
     grads [T_v, K, 10] (zeros past each window's count and in budget
     windows no tile uses).  Launches ``csrc/blend_exact_bwd.cu`` on CUDA
-    tensors; runs ``blend_exact_bwd_plain`` on CPU tensors."""
+    tensors, one block per entry of ``order`` (int32 real-tile ids;
+    ``exact_bwd_order`` when not given): a tile left out gets no grads, and
+    the order changes no tile's grads.  Runs ``blend_exact_bwd_plain`` on
+    CPU tensors, which ignores ``order``."""
     dev = attrs.device
     t = last_v.shape[0]
     for name, x in (("saved", saved), ("g_out", g_out)):
@@ -359,14 +373,21 @@ def blend_exact_bwd(attrs: torch.Tensor, vcounts: torch.Tensor,
         if tuple(x.shape) != (t, N_OUT, P):
             raise ValueError(f"blend_exact_bwd: {name} has shape "
                              f"{tuple(x.shape)}, expected {(t, N_OUT, P)}")
+    if order is not None:
+        _check(order, "order", torch.int32, 1, dev)
+        if order.shape[0] > t:
+            raise ValueError(f"blend_exact_bwd: order has {order.shape[0]} "
+                             f"entries for {t} tiles")
     if not _kernel_device(attrs, "blend_exact_bwd"):
         return blend_exact_bwd_plain(attrs, vcounts, wt, last_v, bg, saved,
                                      g_out, tiles_x, t_mod)
+    if order is None:
+        order = exact_bwd_order(wt, last_v)
     d = torch.zeros_like(attrs)
     native.launch("blend_exact_bwd", attrs.data_ptr(), vcounts.data_ptr(),
-                  wt.data_ptr(), last_v.data_ptr(), bg.data_ptr(), t,
-                  attrs.shape[1], tiles_x, t_mod, saved.data_ptr(),
-                  g_out.data_ptr(), d.data_ptr())
+                  wt.data_ptr(), last_v.data_ptr(), order.data_ptr(),
+                  bg.data_ptr(), order.shape[0], attrs.shape[1], tiles_x,
+                  t_mod, saved.data_ptr(), g_out.data_ptr(), d.data_ptr())
     return d
 
 

@@ -6,9 +6,10 @@ profiling.py``.
 CUDA device) after warm-up calls outside the trace; ``summarize_trace``
 groups the device-side events by name into ms / count rows;
 ``device_summary`` reads the device busy time and idle share of a trace;
-``event_ms`` times a function with CUDA events.  The peaks below are the
-H100 SXM data-sheet values (NVIDIA; dense, at the 700 W limit): a card set
-to a lower power limit runs below them.
+``event_ms`` times a function with CUDA events, ``device_ms`` its device
+time alone.  The peaks below are the H100 SXM data-sheet values (NVIDIA;
+dense, at the 700 W limit): a card set to a lower power limit runs below
+them.
 
 Typical use::
 
@@ -116,10 +117,30 @@ def print_summary(rows: Sequence[dict[str, Any]], top: int = 20) -> None:
 
 
 def event_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls after one warm-up,
-    from CUDA events around the whole run."""
+    """Mean time of ``fn`` over ``reps`` calls after one warm-up, from CUDA
+    events around the whole run: device time, or the host's cost per call
+    (Python, the launch) wherever that is the larger, as for a kernel of a
+    few microseconds."""
+    return _events_ms(fn, reps, 0)
+
+
+# Clock cycles of the busy-wait ``device_ms`` puts before the timed calls:
+# about 20 ms at 1.98 GHz, far longer than the host takes to enqueue them.
+_HOLD_CYCLES = 40_000_000
+
+
+def device_ms(fn, reps: int) -> float:
+    """``event_ms`` with the device held busy (``torch.cuda._sleep``) while
+    the host enqueues the calls, so that they run back to back and the
+    host's cost per call drops out: the device time alone."""
+    return _events_ms(fn, reps, _HOLD_CYCLES)
+
+
+def _events_ms(fn, reps: int, hold_cycles: int) -> float:
     fn()
     torch.cuda.synchronize()
+    if hold_cycles:
+        torch.cuda._sleep(hold_cycles)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()

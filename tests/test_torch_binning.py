@@ -164,17 +164,21 @@ def test_bin_gaussians_rejects_seg_pos(small):
                                  with_seg_pos=True, vis_capacity=100)
 
 
-@pytest.mark.parametrize("k_cap", [128, 256])
+@pytest.mark.parametrize("k_cap", [128, 256, 384])
 def test_k5_plain_matches_jax_slab_gather(k_cap):
     """K5's plain version against the JAX Pallas slab gather (interpret
     mode) plus the binning epilogue it fuses: rank extraction and the
-    sentinel past min(count, K)."""
+    sentinel past min(count, K).  Edge rows: one of count 0, one over K,
+    and a last segment that ends at the last key of ``vals``."""
     rng = np.random.default_rng(7)
     n, tiles, rank_bits = 5000, 13, 9
     vals = np.sort(rng.integers(0, 1 << 30, (n,), dtype=np.int32))
     starts = np.sort(rng.integers(0, n, (tiles,), dtype=np.int32))
     counts = np.minimum(rng.integers(0, 2 * k_cap, (tiles,)),
                         n - starts).astype(np.int32)
+    counts[0] = 0
+    starts[1], counts[1] = 17, 2 * k_cap + 1
+    starts[-1], counts[-1] = n - k_cap // 2 - 3, k_cap // 2 + 3
     raw = np.asarray(jbin._slab_gather(jnp.asarray(vals),
                                        jnp.asarray(starts), k_cap, True))
     live = np.arange(k_cap)[None, :] < np.minimum(counts, k_cap)[:, None]

@@ -1,5 +1,6 @@
 """PyTorch port, backward blend kernels: the plain versions of K2
-(``blend_padded_bwd``) and K4 (``blend_exact_bwd``), reached through the
+(``blend_padded_bwd``) and K4 (``blend_exact_bwd``, and its launch order
+``exact_bwd_order``), reached through the
 autograd ``backward`` of ``blend_padded`` / ``blend_exact`` on CPU tensors,
 against JAX's ``_blend_packed_bwd`` / ``_blend_exact_bwd`` in interpret
 mode, fed through ``jax.vjp`` of ``_blend_packed`` / ``_blend_exact`` on the
@@ -19,7 +20,10 @@ import pytest
 import torch
 
 from street_sparse_3dgs_tpu.ops import pallas_blend as jpb
+from street_sparse_3dgs_tpu_torch.ops import binning as tbin
 from street_sparse_3dgs_tpu_torch.ops import cuda_blend as cb
+from street_sparse_3dgs_tpu_torch.ops.preprocess import Projected
+from test_torch_binning import scene_data
 from test_torch_blend import TILES_X, TILES_Y, exact_layout, random_slots
 
 torch.set_num_threads(1)
@@ -181,3 +185,77 @@ def test_k2_plain_finite_differences_f64():
                     (ti, ch, slot, fd, g)
                 checked += 1
     assert checked >= 90
+
+
+def toy_exact_layout():
+    """A multi-window exact layout: the port's ``bin_gaussians(...,
+    exact_extra=64)`` on the JAX toy scene (2048 rows, 128x96, K = 128),
+    and the pair-major attrs it packs."""
+    data = scene_data(0, 2048, 128, 96)
+    proj = Projected(*(torch.tensor(np.asarray(x)) for x in data["proj"]))
+    bins = tbin.bin_gaussians(proj, 96, 128, 16, 128, exact_extra=64)
+    attrs = cb.pack_gather_attrs(bins.gather, proj.mean2d, proj.conic,
+                                 proj.color, proj.opacity, proj.inv_depth,
+                                 order=bins.order, rank=bins.rank,
+                                 pair_major=True).detach()
+    return attrs, bins.vcounts, bins.wt, bins.last_v, bins.tiles_x
+
+
+def one_tile_layout():
+    """One real tile over three windows (300 pairs) and two unused budget
+    windows."""
+    rng = np.random.default_rng(31)
+    vcounts, wt, last_v, _ = exact_layout([300], 128, 2)
+    attrs = np.zeros((vcounts.shape[0], 128, 10), np.float32)
+    slots = random_slots(rng, 300, False)
+    for j in range(3):
+        attrs[j, :len(slots[j * 128:(j + 1) * 128])] = slots[j * 128:
+                                                             (j + 1) * 128]
+    return (torch.tensor(attrs), torch.tensor(vcounts), torch.tensor(wt),
+            torch.tensor(last_v), 1)
+
+
+def no_tile_layout():
+    """No real tile: three budget windows no tile uses."""
+    return (torch.zeros((3, 128, 10)), torch.zeros(3, dtype=torch.int32),
+            torch.zeros(3, dtype=torch.int32),
+            torch.zeros(0, dtype=torch.int32), 1)
+
+
+ORDER_LAYOUTS = {"no_tile": no_tile_layout, "one_tile": one_tile_layout,
+                 "toy_multi_window": toy_exact_layout}
+
+
+@pytest.mark.parametrize("layout", sorted(ORDER_LAYOUTS))
+def test_k4_launch_order(layout):
+    """``exact_bwd_order`` (K4's launch order) is a permutation of the real
+    tiles, deepest first, ties in tile order; and the backward on CPU
+    tensors (the plain version) gives the same grads with or without it.
+    A bad order is refused."""
+    attrs, vcounts, wt, last_v, tiles_x = ORDER_LAYOUTS[layout]()
+    t = last_v.shape[0]
+    order = cb.exact_bwd_order(wt, last_v)
+    assert order.dtype == torch.int32
+    assert sorted(order.tolist()) == list(range(t))
+    windows = (wt.to(torch.int64)[last_v.to(torch.int64)] + 1)[
+        order.to(torch.int64)].tolist()
+    keys = [(-w, i) for w, i in zip(windows, order.tolist())]
+    assert keys == sorted(keys)
+    if layout == "toy_multi_window":
+        assert max(windows) > 1 and t > 1
+
+    bg = torch.tensor([[0.3, 0.2, 0.1]])
+    saved = cb.blend_exact_plain(attrs, vcounts, wt, last_v, bg, tiles_x)
+    g_out = torch.tensor(np.random.default_rng(37).normal(
+        0, 1, (t, 8, 256)).astype(np.float32))
+    args = (attrs, vcounts, wt, last_v, bg, saved, g_out, tiles_x)
+    want = cb.blend_exact_bwd(*args)
+    assert torch.equal(cb.blend_exact_bwd(*args, order=order), want)
+    assert torch.equal(cb.blend_exact_bwd(*args, order=order.flip(0)), want)
+    if t:
+        assert want.any()
+    with pytest.raises(ValueError, match="order"):
+        cb.blend_exact_bwd(*args, order=order.to(torch.int64))
+    with pytest.raises(ValueError, match="order"):
+        cb.blend_exact_bwd(*args, order=torch.zeros(t + 1,
+                                                    dtype=torch.int32))

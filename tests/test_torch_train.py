@@ -179,8 +179,37 @@ def test_create_from_pcd_matches_jax():
 def test_frozen_mask_matches_jax(meta):
     jm = jg.GaussianMeta(sh_degree=3, capacity=20, **meta)
     tm = convert.config_from(jm, tg.GaussianMeta)
-    np.testing.assert_array_equal(tg.frozen_mask(tm, 20).numpy(),
-                                  np.asarray(jg.frozen_mask(jm, 20)))
+    np.testing.assert_array_equal(
+        tg.frozen_mask(tm, 20, device="cpu").numpy(),
+        np.asarray(jg.frozen_mask(jm, 20)))
+
+
+CREATORS = {
+    "frozen_mask": lambda **kw: tg.frozen_mask(
+        tg.GaussianMeta(sh_degree=3, capacity=20, scaffold_points=5), 20,
+        **kw),
+    "init_exposure": lambda **kw: tg.init_exposure(4, **kw),
+    "densify_init": lambda **kw: tdens.init(20, **kw)}
+JAX_TWINS = {
+    "frozen_mask": lambda: jg.frozen_mask(
+        jg.GaussianMeta(sh_degree=3, capacity=20, scaffold_points=5), 20),
+    "init_exposure": lambda: jg.init_exposure(4),
+    "densify_init": lambda: jdens.init(20)}
+
+
+@pytest.mark.parametrize("name", sorted(CREATORS))
+def test_creator_defaults_to_the_card(name):
+    """These creators default to ``device.DEFAULT_DEVICE`` ("cuda") like
+    every other: without a card the default raises, and on the CPU each
+    equals its JAX twin."""
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            CREATORS[name]()
+    got, want = CREATORS[name](device="cpu"), JAX_TWINS[name]()
+    for g, w in zip(*((got, want) if name == "densify_init"
+                      else ((got,), (want,)))):
+        assert g.device.type == "cpu"
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
 # ---- Adam, densify ---------------------------------------------------------
