@@ -15,6 +15,8 @@ against its plain PyTorch version:
              with the end of the keys) and the kernel-floor stubs D1-D3 on
              small inputs against their plain versions; K2 and K4 launched
              twice (bit-identical), K4 also in another tile order (equal);
+             K3's window split at groups of 1, 2 and 3 windows against
+             its plain twin and the plain version;
 3. grads_small — ``rasterize`` and its backward on a toy scene in the
              padded and the exact+counts config, on the card (kernels) and
              on the CPU (plain versions);
@@ -46,11 +48,15 @@ against its plain PyTorch version:
              bit for bit against the state, and 10 steps from each giving
              bit-identical losses; ``too_far_mask`` card against CPU;
 12. kernels_street — K1-K5 timed at the shapes of phases 4, 8, 9, and K3,
-             K4 at those of phase 11: ``ms`` is device time
-             (``profiling.device_ms``), ``wall_ms`` the events around
-             back-to-back calls, host cost included; K4 launched twice
-             (bit-identical) and over its deepest tile alone (its share of
-             the launch);
+             K4 at those of phase 11, K1 at phase 9's, K2 at phase 10's:
+             ``ms`` is device time (``profiling.device_ms``), ``wall_ms``
+             the events around back-to-back calls, host cost included; K3
+             and K4 launched twice (bit-identical) and over their deepest
+             tile alone (its share of the launch); K1-K4: the walked and
+             the passing (slot, pixel) steps and the share of walked
+             warp-slots where a pixel passes the alpha test, from which
+             the bound is counted; K3 also deepest first, and against the
+             split's plain twin;
 13. the kernels line (launches counted on phases 4, 5, 7, 8, 9, 10 and 11
              only, error against the plain version, times, bound) and the
              device line.
@@ -77,12 +83,15 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM special-function rate (NVIDIA data sheet; the memory and f32
 # peaks are profiling.PEAK_BYTES_S / PEAK_FLOP_S).
 SFU_PER_SM_PER_CLK = 16          # special-function results per SM per clock
-FLOPS_PER_EVAL = 20              # f32 ops of one (slot, pixel) blend step
-SFU_PER_EVAL = 2                 # exp(power) and log1p(-alpha) per step
-# Backward step (blend_common.cuh blend_slot_bwd): exp(power), log1p(-alpha)
-# and exp(tlog_before); about 50 f32 operations with the ten partials.
-BWD_FLOPS_PER_EVAL = 50
-BWD_SFU_PER_EVAL = 3
+# Work a blend needs per (slot, pixel) step, forward and backward: every
+# walked step evaluates the power (dx, dy, six products, two sums); a step
+# that passes the alpha test also needs exp(power), log1p(-alpha) and
+# exp(log T) and the rest of its blend (forward: alpha, the weight, five
+# sums; backward: the ten partials).
+FLOPS_PER_WALK = 11
+SFU_PER_PASS = 3
+FLOPS_PER_PASS = 15
+BWD_FLOPS_PER_PASS = 50
 
 IMG_ATOL = 2e-5                  # tests/test_pallas_blend.py forward bar
 FLIP_SHARE = 1e-4                # pixels allowed to differ by a T=1e-4 flip
@@ -145,8 +154,9 @@ class Recorder:
         self.calls: list = []
 
     def __enter__(self):
-        def wrapped(*args):
-            out = self.fn(*args)
+        # Keyword arguments (a launch ``order``) pass through unrecorded.
+        def wrapped(*args, **kw):
+            out = self.fn(*args, **kw)
             if not self.first_only:
                 self.calls.append((args, out))
             elif not self.calls:
@@ -204,26 +214,16 @@ def compare_grads(name: str, got: torch.Tensor, want: torch.Tensor,
             "max_abs_err": float((g - w).abs().max())}
 
 
-def bound(bytes_: int, evals: int, sfu_per_eval: int, flops_per_eval: int,
-          sfu_rate: float):
+def bound(bytes_: int, sfu: int, flops: int, sfu_rate: float):
     """(bound ms, bound_by): the larger of bytes over the card's memory
-    rate and the (slot, pixel) steps walked at ``sfu_per_eval``
-    special-function results (and ``flops_per_eval`` f32 operations)
-    each."""
+    rate and the operations over their peak rates (``sfu``
+    special-function results, ``flops`` f32 operations)."""
     from street_sparse_3dgs_tpu_torch.profiling import (PEAK_BYTES_S,
                                                         PEAK_FLOP_S)
     t_bytes = bytes_ / PEAK_BYTES_S
-    t_ops = max(evals * sfu_per_eval / sfu_rate,
-                evals * flops_per_eval / PEAK_FLOP_S)
+    t_ops = max(sfu / sfu_rate, flops / PEAK_FLOP_S)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
-
-
-def walked(out: torch.Tensor, live: torch.Tensor) -> int:
-    """(slot, pixel) steps a blend walked: n_contrib slots passed, plus the
-    terminating slot where the walk stopped before the tile's live count."""
-    nc = out[:, 6].to(torch.int64)
-    return int(torch.minimum(nc + 1, live[:, None]).sum())
 
 
 def tile_pairs(vcounts, wt, last_v) -> torch.Tensor:
@@ -320,9 +320,9 @@ def step_stages(step, state, batch, bg, bwd_name: str) -> dict:
     marks = {}
 
     def timed(key):
-        def wrapped(*args):
+        def wrapped(*args, **kw):
             s = ev()
-            out = originals[key](*args)
+            out = originals[key](*args, **kw)
             spans[key].append((s, ev()))
             return out
         return wrapped
@@ -470,13 +470,15 @@ def train_loop_toy(dev) -> dict:
     tests/test_train.py:313-361 (a 64x64, 200-Gaussian toy scene, oracle GT,
     a noisy point cloud) through the padded kernels, with densification.
     Fails unless the loss EMA (0.97) ends below 0.75x its value at
-    iteration 20."""
+    iteration 20.  Returns {"launches": the phase's launches, "k2_call": the
+    first K2 call (args, result) at its shapes}."""
     from street_sparse_3dgs_tpu_torch import native
     from street_sparse_3dgs_tpu_torch.config import (ModelConfig,
                                                      OptimizationConfig,
                                                      PipelineConfig)
     from street_sparse_3dgs_tpu_torch.data.toy import make_toy_scene
     from street_sparse_3dgs_tpu_torch.models.gaussians import create_from_pcd
+    from street_sparse_3dgs_tpu_torch.ops import cuda_blend as cb
     from street_sparse_3dgs_tpu_torch.ops.rasterize import (RasterConfig,
                                                             rasterize)
     from street_sparse_3dgs_tpu_torch.train.loop import LoopHooks, train_loop
@@ -503,7 +505,8 @@ def train_loop_toy(dev) -> dict:
     rounds = []
     native.reset_launches()
     # The loop's progress lines go to stderr: stdout holds the JSON lines.
-    with contextlib.redirect_stdout(sys.stderr):
+    with contextlib.redirect_stdout(sys.stderr), \
+            Recorder(cb, "blend_padded_bwd", first_only=True) as k2:
         state, meta, stats = train_loop(
             state, meta, camera_batches(scene.cameras, gts, dev), opt, pipe,
             ModelConfig(), cameras_extent=3.0, spatial_lr_scale=1.0,
@@ -530,7 +533,7 @@ def train_loop_toy(dev) -> dict:
           "capacity_growths": stats["overflows"],
           "tile_overflow": stats["tile_overflow"],
           "dup_overflow": stats["dup_overflow"], "launches": launches})
-    return launches
+    return {"launches": launches, "k2_call": k2.calls[0]}
 
 
 def state_leaves(state) -> dict:
@@ -732,52 +735,60 @@ def grads_small(dev) -> dict:
 
 
 def fwd_bound(args, out, exact: bool, sfu_rate: float):
-    """(bound ms, bound_by, live slots, steps) of a forward blend call:
-    bytes = live attrs (10 f32 each) + per-tile int32 metadata + the
-    [T, 8, 256] output; steps = the (slot, pixel) steps the call walked."""
+    """(bound ms, bound_by, live slots, walk counts) of a forward blend
+    call: bytes = live attrs (10 f32 each) + per-tile int32 metadata + the
+    [T, 8, 256] output; operations = the power at every (slot, pixel) step
+    the call walked and the rest of the step at those that pass the alpha
+    test (``walk_counts``)."""
     if exact:
         per_tile = tile_pairs(*args[1:4])
         vec_reads = 2 * args[1].shape[0] + args[3].shape[0]
     else:
         per_tile = torch.clamp(args[1].to(torch.int64), max=args[0].shape[2])
         vec_reads = args[1].shape[0]
-    evals = walked(out, per_tile)
+    counts = walk_counts(args, out, exact, 1)
+    walk, passed = counts["walked_steps"], counts["passing_steps"]
     live = int(per_tile.sum())
     ms, by = bound(live * 40 + vec_reads * 4 + out.shape[0] * 8 * 256 * 4,
-                   evals, SFU_PER_EVAL, FLOPS_PER_EVAL, sfu_rate)
-    return ms, by, live, evals
+                   passed * SFU_PER_PASS,
+                   walk * FLOPS_PER_WALK + passed * FLOPS_PER_PASS, sfu_rate)
+    return ms, by, live, counts
 
 
 def bwd_bound(args, exact: bool, sfu_rate: float):
-    """(bound ms, bound_by, live slots, steps) of a backward blend call:
-    bytes = live attrs (10 f32 each) + per-tile int32 metadata + the rows
-    the kernel reads of saved (log T, n_contrib) and of the cotangent (R,
-    G, B, invdepth, alpha) + the grads it writes; steps = each pixel's
-    slots below its n_contrib."""
+    """(bound ms, bound_by, live slots, walk counts) of a backward blend
+    call: bytes = live attrs (10 f32 each) + per-tile int32 metadata + the
+    rows the kernel reads of saved (log T, n_contrib) and of the cotangent
+    (R, G, B, invdepth, alpha) + the grads it writes; operations = the
+    power at each pixel's slots below its n_contrib and the rest of the
+    step at those that pass the alpha test."""
     if exact:
         attrs, vcounts, wt, last_v, _, saved = args[:6]
         per_tile = tile_pairs(vcounts, wt, last_v)
         windows = int((wt.to(torch.int64)[last_v.to(torch.int64)] + 1).sum())
         out_bytes = windows * attrs.shape[1] * 10 * 4
         vec_reads = 2 * vcounts.shape[0] + last_v.shape[0]
+        fwd_args = args[:5] + args[7:]
     else:
         attrs, counts, bg, saved = args[:4]
         per_tile = torch.clamp(counts.to(torch.int64), max=attrs.shape[2])
         out_bytes = attrs.numel() * 4
         vec_reads = counts.shape[0] + bg.numel()
+        fwd_args = args[:3] + args[5:]
     t = saved.shape[0]
     live = int(per_tile.sum())
-    evals = int(torch.minimum(saved[:, 6].to(torch.int64),
-                              per_tile[:, None]).sum())
+    counts = walk_counts(fwd_args, saved, exact, 0)
+    walk, passed = counts["walked_steps"], counts["passing_steps"]
     bytes_ = live * 40 + vec_reads * 4 + t * 7 * 256 * 4 + out_bytes
-    ms, by = bound(bytes_, evals, BWD_SFU_PER_EVAL, BWD_FLOPS_PER_EVAL,
+    ms, by = bound(bytes_, passed * SFU_PER_PASS,
+                   walk * FLOPS_PER_WALK + passed * BWD_FLOPS_PER_PASS,
                    sfu_rate)
-    return ms, by, live, evals
+    return ms, by, live, counts
 
 
 def k4_checks(args, ms: float) -> dict:
     """K4 on recorded inputs ``args``: two launches bit-identical, and the
-    deepest tile (the first of ``exact_bwd_order``) launched alone
+    deepest tile (the first of ``exact_tile_order``) launched alone
     (``order=[deepest]``, one block): its windows' grads equal the full
     launch's and no other window gets any.  Returns the deepest tile's
     windows, slots, device ms and share of the full launch's ``ms``."""
@@ -787,7 +798,7 @@ def k4_checks(args, ms: float) -> dict:
     full = cb.blend_exact_bwd(*args)
     if not torch.equal(full, cb.blend_exact_bwd(*args)):
         raise AssertionError("K4: two launches differ")
-    deep = cb.exact_bwd_order(wt, last_v)[:1].contiguous()
+    deep = cb.exact_tile_order(wt, last_v)[:1].contiguous()
     t = int(deep[0])
     v_last = int(last_v[t])
     v_first = v_last - int(wt[v_last])
@@ -796,10 +807,112 @@ def k4_checks(args, ms: float) -> dict:
             and not alone[:v_first].any() and not alone[v_last + 1:].any()):
         raise AssertionError("K4: the deepest tile launched alone differs "
                              "from the full launch")
-    deep_ms = device_ms(lambda: cb.blend_exact_bwd(*args, order=deep), 10)
+    # Timed past the wrapper's checks of ``order``, which read it back.
+    deep_ms = device_ms(lambda: cb.blend_exact_bwd_launch(
+        *args[:7], *(list(args[7:]) + [0])[:2], deep), 10)
     return {"tile": t, "windows": v_last - v_first + 1,
             "slots": int(tile_pairs(vcounts, wt, last_v)[t]),
             "ms": deep_ms, "share_of_launch": deep_ms / ms}
+
+
+def k3_checks(args, ms: float) -> dict:
+    """K3 on recorded inputs ``args``: two launches bit-identical, and the
+    deepest tile (the first of ``exact_tile_order``) launched alone
+    (``order=[deepest]``, one block) gives the full launch's rows for that
+    tile.  Returns, timed beside the default (tile order, the split), the
+    launch with the tiles deepest first and the launch with no split (every
+    tile one block), the real tiles by window count, and the deepest tile's
+    windows, slots, device ms and share of the full launch's ``ms``."""
+    from street_sparse_3dgs_tpu_torch.ops import cuda_blend as cb
+    from street_sparse_3dgs_tpu_torch.profiling import device_ms
+    _, vcounts, wt, last_v = args[:4]
+    tiles_x, t_mod = (list(args[5:]) + [0])[:2]
+    full = cb.blend_exact(*args)
+    if not torch.equal(full, cb.blend_exact(*args)):
+        raise AssertionError("K3: two launches differ")
+    deepest_first = cb.exact_tile_order(wt, last_v)
+    if not torch.equal(cb.blend_exact(*args, order=deepest_first), full):
+        raise AssertionError("K3: deepest first differs from tile order")
+    deep = deepest_first[:1].contiguous()
+    t = int(deep[0])
+    v_last = int(last_v[t])
+    alone = cb.blend_exact(*args, order=deep)
+    if not torch.equal(alone[t], full[t]):
+        raise AssertionError("K3: the deepest tile launched alone differs "
+                             "from the full launch")
+
+    # Timed past the wrapper's checks of ``order``, which read it back.
+    def launch(order, group=cb.EXACT_GROUP):
+        return lambda: cb.blend_exact_launch(*args[:5], tiles_x, t_mod,
+                                             order, group)
+    deep_ms = device_ms(launch(deep), 10)
+    return {"bit_identical_reruns": True,
+            "deepest_first_ms": device_ms(launch(deepest_first), 20),
+            "no_split_ms": device_ms(launch(None, 0), 20),
+            **window_histogram(wt, last_v),
+            "deepest_tile": {
+                "tile": t, "windows": int(wt[v_last]) + 1,
+                "slots": int(tile_pairs(vcounts, wt, last_v)[t]),
+                "ms": deep_ms, "share_of_launch": deep_ms / ms}}
+
+
+def window_histogram(wt, last_v) -> dict:
+    """Real tiles by their number of windows."""
+    nw = (wt.to(torch.int64)[last_v.to(torch.int64)] + 1)
+    edges = ((1, 1), (2, 2), (3, 4), (5, 8), (9, 16), (17, 32), (33, 1 << 30))
+    hist = {f"{a}" if a == b else (f"{a}-{b}" if b < 1 << 30 else f"{a}+"):
+            int(((nw >= a) & (nw <= b)).sum()) for a, b in edges}
+    return {"tiles_by_windows": hist, "max_windows": int(nw.max()),
+            "windows": int(nw.sum())}
+
+
+def walk_counts(args, out, exact: bool, reach: int) -> dict:
+    """The (slot, pixel) steps of a blend call on forward inputs ``args``
+    and forward output ``out``: each pixel walks slot j while j <
+    min(n_contrib + ``reach``, live) (a forward also meets its terminating
+    slot: 1; a backward recounts n_contrib: 0).  Counts the walked steps,
+    those that pass the alpha test (power <= 0 and alpha >= 1/255), and the
+    warp-slots (a warp is 32 pixels of a tile) walked and with at least one
+    passing pixel: the rest are what a warp skip ahead of exp can leave
+    out.  From the call's attrs, on the card, in chunks of tiles."""
+    from street_sparse_3dgs_tpu_torch.ops import cuda_blend as cb
+    attrs, dev = args[0], args[0].device
+    if exact:
+        vcounts, wt, last_v = args[1:4]
+        tiles_x, t_mod = (list(args[5:]) + [0])[:2]
+        chunks = ((s, e, attrs[v].reshape(e - s, -1, 10).transpose(1, 2),
+                   total, cb._chunk_tiles(s, e, dev, t_mod))
+                  for s, e, v, _, total in cb._exact_chunks(
+                      vcounts, wt, last_v, attrs.shape[1], 1 << 24))
+    else:
+        tiles_x, tile0, t_mod = (list(args[3:]) + [0, 0])[:3]
+        k = attrs.shape[2]
+        live = torch.clamp(args[1].to(torch.int64), max=k)
+        step = max(1, (1 << 24) // (256 * k))
+
+        def padded_chunks():
+            for s in range(0, attrs.shape[0], step):
+                e = min(attrs.shape[0], s + step)
+                tiles = torch.arange(s, e, device=dev) + tile0
+                yield (s, e, attrs[s:e], live[s:e],
+                       tiles % t_mod if t_mod else tiles)
+        chunks = padded_chunks()
+    walked_ws = passed_ws = walked_steps = passed_steps = 0
+    for s, e, slots, total, tiles in chunks:
+        ok = cb.slot_alpha(slots, total, tiles, tiles_x)[1]  # [C, 256, L]
+        upto = torch.minimum(out[s:e, 6].to(torch.int64) + reach,
+                             total.to(torch.int64)[:, None])
+        lane = (torch.arange(slots.shape[2], device=dev)[None, None, :]
+                < upto[:, :, None])                         # [C, 256, L]
+        c, ell = e - s, slots.shape[2]
+        passed = ok & lane
+        walked_steps += int(lane.sum())
+        passed_steps += int(passed.sum())
+        walked_ws += int(lane.view(c, 8, 32, ell).any(dim=2).sum())
+        passed_ws += int(passed.view(c, 8, 32, ell).any(dim=2).sum())
+    return {"walked_steps": walked_steps, "passing_steps": passed_steps,
+            "walked_warp_slots": walked_ws, "passing_warp_slots": passed_ws,
+            "warp_slot_pass_share": passed_ws / max(walked_ws, 1)}
 
 
 def main() -> int:
@@ -943,6 +1056,19 @@ def main() -> int:
                              vcounts, wt, last_v,
                              torch.tensor([[0.2, 0.1, 0.3]]))]
     saved = cb.blend_exact(*a, 3)
+    # K3's window split on this layout with its termination bait: groups of
+    # 1, 2 and 3 windows (tile 4 has 5 windows, tile 0 has 3) and no split,
+    # against the split's plain twin and the plain version, every pixel.
+    for group in (0, 1, 2, 3):
+        k_out = cb.blend_exact_launch(*a, 3, 0, None, group)
+        checks = {"vs_plain": compare_blend(k_out,
+                                            cb.blend_exact_plain(*a, 3))}
+        if group:
+            checks["vs_split_plain"] = compare_blend(
+                k_out, cb.blend_exact_split_plain(*a, 3, group=group))
+        for what, cmp in checks.items():
+            check_blend(f"K3 small group={group} {what}", cmp, strict=True)
+        small[f"K3 bait group={group}"] = checks
     go = g_small[:5].contiguous().to(dev)
     d1 = cb.blend_exact_bwd(*a, saved, go, 3)
     d2 = cb.blend_exact_bwd(*a, saved, go, 3)
@@ -1042,6 +1168,11 @@ def main() -> int:
         p_out = plain_fn(*b_args)
         cmp = compare_blend(b_out, p_out)
         check_blend(f"{blend_name} view {v}", cmp, strict=False)
+        if cfg.exact_extra:
+            cmp["vs_split_plain"] = compare_blend(
+                b_out, cb.blend_exact_split_plain(*b_args))
+            check_blend(f"K3 view {v} vs split plain",
+                        cmp["vs_split_plain"], strict=False)
         tiles_x = b_args[-1]
         ty = -(-cam.height // 16)
         plain_img = cb._to_image(p_out[:, :5], tiles_x, ty, cam.height,
@@ -1204,7 +1335,7 @@ def main() -> int:
         "train_bench", (toy.means3d, toy.scales, toy.quats, toy.opacities,
                         toy.sh_coeffs), toy.cameras, bench_pipe,
         BENCH_STEPS, 3.3, dev, "blend_padded_bwd", exact_counts=False)
-    loop_launches = train_loop_toy(dev)
+    loop_rec = train_loop_toy(dev)
     auto_rec = train_street_auto(dev, scene.means3d)
 
     # ---- 12. kernels at the street shapes of view 0 -----------------------
@@ -1213,7 +1344,7 @@ def main() -> int:
                "kernel_floor": launches_floor,
                "train_street": street_rec["launches"],
                "train_bench": bench_rec["launches"],
-               "train_loop_toy": loop_launches,
+               "train_loop_toy": loop_rec["launches"],
                "train_street_auto": auto_rec["launches"]}
 
     def launches_of(key):
@@ -1239,8 +1370,8 @@ def main() -> int:
         wall_ms = event_ms(lambda: kern(*args), 20)
         plain_ms = event_ms(lambda: plain(*args), 2)
         out = rec["blend_out"]
-        bound_ms, bound_by, live, evals = fwd_bound(args, out, exact,
-                                                    sfu_rate)
+        bound_ms, bound_by, live, walk = fwd_bound(args, out, exact,
+                                                   sfu_rate)
         cmp = compare_blend(out, rec["plain_out"])
         key = "blend_exact" if exact else "blend_padded"
         kernels.append({
@@ -1257,8 +1388,27 @@ def main() -> int:
                          f"all but {FLIP_SHARE} of the pixels",
             "ms": ms, "wall_ms": wall_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "shapes": "street view 0", "live_slots": live, "evals": evals,
-            "tiles": out.shape[0]})
+            "shapes": "street view 0", "live_slots": live, **walk,
+            "tiles": out.shape[0], **(k3_checks(args, ms) if exact else {})})
+        if exact:
+            kernels[-1]["vs_split_plain"] = compare_blend(
+                out, cb.blend_exact_split_plain(*args))
+            check_blend("K3 street view 0 vs split plain",
+                        kernels[-1]["vs_split_plain"], strict=False)
+
+    # K1 at the train_bench shapes: the forward whose saved rows the
+    # recorded K2 call read (its args minus saved and g_out).
+    args = bench_rec["args"][:3] + bench_rec["args"][5:]
+    out = bench_rec["args"][3]
+    ms = device_ms(lambda: cb.blend_padded(*args), 20)
+    cmp = compare_blend(out, cb.blend_padded_plain(*args))
+    check_blend("K1 at train_bench", cmp, strict=False)
+    b_ms, b_by, live, walk = fwd_bound(args, out, False, sfu_rate)
+    kernels[0]["at_train_bench"] = {
+        "ms": ms, "wall_ms": event_ms(lambda: cb.blend_padded(*args), 20),
+        "plain_ms": event_ms(lambda: cb.blend_padded_plain(*args), 2),
+        "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": cmp["max_abs_err"],
+        "flips": cmp["flips"], "live_slots": live, **walk}
 
     # K2 at the train_bench shapes, K4 at the train_street view-0 shapes
     # (the inputs and output recorded in those phases' bit-identity runs).
@@ -1279,7 +1429,7 @@ def main() -> int:
         plain_ms = event_ms(lambda: plain(*args), 2)
         cmp = compare_grads(f"{name} at {shapes}", out, plain(*args),
                             2 if exact else 1)
-        bound_ms, bound_by, live, evals = bwd_bound(args, exact, sfu_rate)
+        bound_ms, bound_by, live, walk = bwd_bound(args, exact, sfu_rate)
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"street_sparse_3dgs_tpu_torch/csrc/{src}",
@@ -1290,10 +1440,35 @@ def main() -> int:
                          "saved forward rows",
             "ms": ms, "wall_ms": wall_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "shapes": shapes, "live_slots": live, "evals": evals,
+            "shapes": shapes, "live_slots": live, **walk,
             "tiles": args[5 if exact else 3].shape[0],
             **({"bit_identical_reruns": True,
                 "deepest_tile": k4_checks(args, ms)} if exact else {})})
+
+    # K2 at the train_loop_toy shapes (its first step, 64x64, K = 128), and
+    # K1 on the forward whose saved rows that K2 call read.
+    args, out = loop_rec["k2_call"]
+    k1_args = args[:3] + args[5:]
+    cmp = compare_blend(args[3], cb.blend_padded_plain(*k1_args))
+    check_blend("K1 at train_loop_toy", cmp, strict=False)
+    b_ms, b_by, live, walk = fwd_bound(k1_args, args[3], False, sfu_rate)
+    kernels[0]["at_train_loop_toy"] = {
+        "ms": device_ms(lambda: cb.blend_padded(*k1_args), 50),
+        "wall_ms": event_ms(lambda: cb.blend_padded(*k1_args), 50),
+        "plain_ms": event_ms(lambda: cb.blend_padded_plain(*k1_args), 5),
+        "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": cmp["max_abs_err"],
+        "live_slots": live, **walk}
+    cmp = compare_grads("K2 at train_loop_toy", out,
+                        cb.blend_padded_bwd_plain(*args), 1)
+    b_ms, b_by, live, walk = bwd_bound(args, False, sfu_rate)
+    next(k for k in kernels if k["name"].startswith("K2"))[
+        "at_train_loop_toy"] = {
+        "ms": device_ms(lambda: cb.blend_padded_bwd(*args), 50),
+        "wall_ms": event_ms(lambda: cb.blend_padded_bwd(*args), 50),
+        "plain_ms": event_ms(lambda: cb.blend_padded_bwd_plain(*args), 5),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "max_scaled_err": cmp["max_scaled_err"], "live_slots": live,
+        **walk}
 
     # K3 and K4 at the train_street_auto shapes (960x544, its first resume
     # step): time, bound and agreement with the plain version there too.
@@ -1306,19 +1481,26 @@ def main() -> int:
         if key == "blend_exact":
             cmp = compare_blend(out, plain(*args))
             check_blend("K3 at train_street_auto", cmp, strict=False)
-            b_ms, b_by, live, evals = fwd_bound(args, out, True, sfu_rate)
+            b_ms, b_by, live, walk = fwd_bound(args, out, True, sfu_rate)
         else:
             cmp = compare_grads("K4 at train_street_auto", out,
                                 plain(*args), 2)
-            b_ms, b_by, live, evals = bwd_bound(args, True, sfu_rate)
+            b_ms, b_by, live, walk = bwd_bound(args, True, sfu_rate)
         entry = next(k for k in kernels if k["name"].endswith(" " + key))
         entry["at_train_street_auto"] = {
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "max_abs_err": cmp["max_abs_err"],
-            "live_slots": live, "evals": evals}
+            "live_slots": live, **walk}
         if key == "blend_exact_bwd":
             entry["at_train_street_auto"]["deepest_tile"] = k4_checks(args,
                                                                       ms)
+        else:
+            split_cmp = compare_blend(out, cb.blend_exact_split_plain(*args))
+            check_blend("K3 at train_street_auto vs split plain", split_cmp,
+                        strict=False)
+            entry["at_train_street_auto"].update(
+                flips=cmp["flips"], vs_split_plain=split_cmp,
+                **k3_checks(args, ms))
 
     k5_args = ex["k5"]
     sorted_vals, starts, counts_v, k_cap = k5_args[:4]

@@ -1,6 +1,6 @@
 // Shared per-pixel blend steps of the blend kernels: forward (K1 padded,
-// K3 exact) and backward (K2 padded, K4 exact), which share one alpha test
-// (``eval_slot``).  The rules are those of ops/oracle.py and of the TPU
+// K3 exact; their walk is blend_fwd.cuh) and backward (K2 padded, K4
+// exact), which share one alpha test (``eval_slot``).  The rules are those of ops/oracle.py and of the TPU
 // kernels in street_sparse_3dgs_tpu/ops/pallas_blend.py (_fwd_one_tile,
 // _bwd_one_tile):
 //
@@ -47,13 +47,18 @@ struct SlotEval {
 };
 
 template <typename Slot>
-__device__ __forceinline__ SlotEval eval_slot(const Slot& s, float px,
-                                              float py) {
+__device__ __forceinline__ float slot_power(const Slot& s, float dx,
+                                            float dy) {
+  return -0.5f * (s(CA) * dx * dx + s(CC) * dy * dy) - s(CB) * dx * dy;
+}
+
+// The rest of the test once ``power`` (slot_power at dx, dy) is known.
+template <typename Slot>
+__device__ __forceinline__ SlotEval alpha_test(const Slot& s, float dx,
+                                               float dy, float power) {
   SlotEval e;
-  e.dx = px - s(MX);
-  e.dy = py - s(MY);
-  const float power = -0.5f * (s(CA) * e.dx * e.dx + s(CC) * e.dy * e.dy)
-                      - s(CB) * e.dx * e.dy;
+  e.dx = dx;
+  e.dy = dy;
   e.expp = expf(fminf(power, 0.f));
   e.raw = s(OP) * e.expp;
   e.alpha = fminf(kAlphaMax, e.raw);
@@ -61,29 +66,12 @@ __device__ __forceinline__ SlotEval eval_slot(const Slot& s, float px,
   return e;
 }
 
-// One slot for one pixel, forward.
 template <typename Slot>
-__device__ __forceinline__ void blend_slot(const Slot& s, float px, float py,
-                                           Pixel& st) {
-  const SlotEval e = eval_slot(s, px, py);
-  if (e.ok) {
-    const float alpha = e.alpha;
-    const float lom = log1pf(-alpha);
-    if (st.tlog + lom < kLogEps) {
-      st.alive = false;
-      return;
-    }
-    const float w = alpha * expf(st.tlog);
-    st.r += w * s(CR);
-    st.g += w * s(CG);
-    st.b += w * s(CBL);
-    st.ivd += w * s(ID);
-    st.acc += w;
-    st.tlog += lom;
-  }
-  // A skipped slot has alpha 0 and cannot fail; it counts as passed, as in
-  // the TPU kernel's n_contrib.
-  st.nc += 1.f;
+__device__ __forceinline__ SlotEval eval_slot(const Slot& s, float px,
+                                              float py) {
+  const float dx = px - s(MX);
+  const float dy = py - s(MY);
+  return alpha_test(s, dx, dy, slot_power(s, dx, dy));
 }
 
 // Output rows of a tile [8, 256]: final background composite included.

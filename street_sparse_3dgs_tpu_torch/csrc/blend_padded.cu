@@ -2,21 +2,42 @@
 //
 // Replaces street_sparse_3dgs_tpu/ops/pallas_blend.py _make_fwd_kernel /
 // _fwd_one_tile (launched by _blend_packed_fwd).  One block of 256 threads
-// per 16x16 tile, one pixel per thread.  The tile's min(count, K) slots are
-// staged through shared memory in chunks of 256 slots x 10 channels; attrs
-// are channel-major [T, 10, K], so each channel's chunk is one coalesced
-// read.  Every thread then walks the chunk front to back (blend_common.cuh)
-// and latches its own termination; the block stops once no thread is alive.
+// per 16x16 tile, one pixel per thread, over the tile's min(count, K)
+// slots of the channel-major attrs [T, 10, K]; the block stops once no
+// pixel is alive.
 //
-// Bound on the card: the special-function units.  Each live (slot, pixel)
-// evaluation costs expf + log1pf + expf; the bytes (10 floats per slot read
-// once, 8 floats per pixel written once) are small beside that.  This first
-// version is plain: no cp.async double buffering and no warp-level skip of
-// slots whose footprint misses the warp's pixels.
+// Bound on the card: the work the data needs is, per walked slot-pixel
+// step, the power (about 11 f32 operations), and per step that passes the
+// alpha test three special-function results (expf(power), log1pf(-alpha),
+// expf(log T)) and about 15 f32 operations more; the bytes are 10 floats
+// per live slot read once and 8 floats per pixel written once
+// (chip_smoke.py takes the largest of the three per call).  The walk
+// is blend_fwd.cuh's, shared with K3: cp.async double-buffered staging
+// (each channel of a chunk one coalesced run, transposed into the
+// pair-major shared layout, only the chunk's live slots copied) and a
+// skip ahead of expf from a per-slot threshold.  A tile stops at K slots,
+// so no tile is much deeper than the others: K1 keeps one block per tile
+// in tile order.
 
-#include "blend_common.cuh"
+#include "blend_fwd.cuh"
 
 using namespace blend;
+
+namespace {
+
+// The chunks of one tile's slots [0, count) in the channel-major attrs.
+struct TileSlots {
+  const float* a;
+  int K, count, base;
+  __device__ __forceinline__ bool settle() const { return base < count; }
+  __device__ __forceinline__ int n() const {
+    return min(kChunk, count - base);
+  }
+  __device__ __forceinline__ void step() { base += kChunk; }
+  __device__ __forceinline__ void stage(float* buf) const {
+    stage_channel_major(buf, a + base, K, n());
+  }
+};
 
 __global__ void __launch_bounds__(kPix)
 blend_padded_kernel(const float* __restrict__ attrs,
@@ -24,7 +45,7 @@ blend_padded_kernel(const float* __restrict__ attrs,
                     const float* __restrict__ bg, int bg_per_tile, int K,
                     int tiles_x, int tile0, int t_mod,
                     float* __restrict__ out) {
-  __shared__ float sh[kCh * kChunk];
+  __shared__ __align__(16) FwdBuf buf;
   const int g = blockIdx.x;
   const int pix = threadIdx.x;
   int t = g + tile0;
@@ -33,29 +54,19 @@ blend_padded_kernel(const float* __restrict__ attrs,
                    + static_cast<float>(pix % kTile);
   const float py = static_cast<float>((t / tiles_x) * kTile)
                    + static_cast<float>(pix / kTile);
-  const int count = min(counts[g], K);
-  const float* a = attrs + static_cast<size_t>(g) * kCh * K;
-
   Pixel st;
-  for (int base = 0; base < count; base += kChunk) {
-    const int n = min(kChunk, count - base);
-    for (int i = pix; i < kCh * kChunk; i += kPix) {
-      const int c = i / kChunk, j = i - c * kChunk;
-      if (j < n) sh[i] = a[c * K + base + j];
-    }
-    __syncthreads();
-    if (st.alive) {
-      for (int j = 0; j < n; ++j) {
-        blend_slot([&](int c) { return sh[c * kChunk + j]; }, px, py, st);
-        if (!st.alive) break;
-      }
-    }
-    // Also the barrier that lets the next round overwrite ``sh``.
-    if (__syncthreads_count(st.alive) == 0) break;
-  }
+  walk_chunks(buf,
+              TileSlots{attrs + static_cast<size_t>(g) * kCh * K, K,
+                        min(counts[g], K), 0},
+              [&](const float* b, int n) {
+                walk_fwd(b, n, px, py, st);
+                return st.alive;
+              });
   write_pixel(out + static_cast<size_t>(g) * kOut * kPix, pix, st,
               bg + (bg_per_tile ? 3 * g : 0));
 }
+
+}  // namespace
 
 extern "C" int blend_padded_launch(const float* attrs, const int* counts,
                                    const float* bg, int bg_per_tile, int T,

@@ -42,8 +42,11 @@ _LL = ctypes.c_longlong
 _ARGTYPES = {
     # attrs, counts, bg, bg_per_tile, T, K, tiles_x, tile0, t_mod, out, stream
     "blend_padded": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
-    # attrs, vcounts, wt, last_v, bg, T, K, tiles_x, t_mod, out, stream
-    "blend_exact": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # attrs, vcounts, wt, last_v, order (or null), tiles, bg, K, group,
+    # tiles_x, t_mod, table, len(table), pass2, combine, len(pass2) =
+    # len(combine), drop, part, out, stream
+    "blend_exact": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _I, _P,
+                    _P, _I, _P, _P, _P, _P],
     # vals, starts, counts, T, K, rank_mask, sentinel, out, stream
     "slab_gather": [_P, _P, _P, _I, _I, _LL, _I, _P, _P],
     # attrs, counts, bg, bg_per_tile, T, K, tiles_x, tile0, t_mod, saved,

@@ -10,8 +10,14 @@ slots, and ``blend_tiles_pallas`` blends them with
   (``csrc/blend_padded_bwd.cu``);
 - K3 ``blend_exact`` (``csrc/blend_exact.cu``): attrs pair-major
   [T_v, K, 10] over virtual tiles, one block per REAL tile looping over its
-  windows; its backward is K4 (``csrc/blend_exact_bwd.cu``), which takes
-  the tiles deepest first (``exact_bwd_order``).
+  windows, except that a tile of more than EXACT_GROUP windows is split in
+  groups of windows walked by blocks of their own (``exact_split_plan``;
+  plain twin ``blend_exact_split_plain``); its backward is K4
+  (``csrc/blend_exact_bwd.cu``), which takes the real tiles deepest first
+  (``exact_tile_order``).
+
+K1 and K3 share one forward walk (``csrc/blend_fwd.cuh``), whose per-slot
+skip threshold ``alpha_skip_threshold`` mirrors.
 
 The forwards return the packed [T, 8, 256] rows R, G, B, invdepth, alpha,
 log T, n_contrib, pad; the backwards take those saved rows and the
@@ -49,6 +55,15 @@ P = TILE * TILE
 N_CH = 10
 N_OUT = 8
 LOG_EPS = math.log(T_EPS)
+SKIP_DELTA = 1e-4        # margin of the forward kernels' skip threshold
+# Windows a group of K3's split walks (csrc/blend_exact.cu): tiles with
+# more windows are cut into groups of this many.  In a 1920x1088 street
+# view 94% of the tiles have at most 4 windows and stay whole, while the
+# deepest (30 to 70 windows) become 8 to 18 groups in parallel; a group's
+# walk is the path of its tile.  On the H100 the launch is as fast at 4 as
+# at 8 at street view 0 and faster at 960x544, whose deepest tile has 30
+# windows; 2 costs more (PERF.md).
+EXACT_GROUP = 4
 OR, OG, OB, OI, OA, OT, ON = range(7)
 
 # Slot-pixel evaluations per chunk of the plain versions ([C, 256, L]).
@@ -153,14 +168,20 @@ def _exact_chunks(vcounts: torch.Tensor, wt: torch.Tensor,
     valid, total): tiles [s, e), the [C, W] window ids of their slot lists
     (``valid`` marks the real ones; the rest read window 0) and each tile's
     live slot count [C]."""
-    t = last_v.shape[0]
-    dev = vcounts.device
     last = last_v.to(torch.int64)
     nw = wt.to(torch.int64)[last] + 1
-    first = last - nw + 1
+    yield from _run_chunks(vcounts, last - nw + 1, nw, k, elems)
+
+
+def _run_chunks(vcounts: torch.Tensor, first: torch.Tensor, nw: torch.Tensor,
+                k: int, elems: int):
+    """``_exact_chunks`` over runs of windows: run i is windows
+    [first[i], first[i] + nw[i]) (int64), whose live slots are a prefix."""
+    t = first.shape[0]
+    dev = vcounts.device
     csum = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
                       torch.cumsum(vcounts.to(torch.int64), 0)])
-    total = csum[last + 1] - csum[first]
+    total = csum[first + nw] - csum[first]
     nw_host = nw.tolist()
     s = 0
     while s < t:
@@ -200,6 +221,252 @@ def blend_exact_plain(attrs: torch.Tensor, vcounts: torch.Tensor,
         out[s:e] = _blend_slots_plain(
             slots, total, _chunk_tiles(s, e, attrs.device, t_mod), tiles_x,
             bg.expand(e - s, 3))
+    return out
+
+
+def alpha_skip_threshold(op: torch.Tensor) -> torch.Tensor:
+    """The forward kernels' per-slot skip threshold, in float32 as they
+    compute it (``csrc/blend_fwd.cuh`` skip_threshold): log(ALPHA_MIN / op)
+    - SKIP_DELTA, or +inf where op < ALPHA_MIN.  A slot whose power at a
+    pixel lies below it cannot pass the alpha test there."""
+    op = op.to(torch.float32)
+    a_min = torch.tensor(ALPHA_MIN, dtype=torch.float32, device=op.device)
+    thr = torch.log(a_min / op) - torch.tensor(SKIP_DELTA,
+                                               dtype=torch.float32)
+    return torch.where(op < a_min, torch.full_like(op, math.inf), thr)
+
+
+def _split_sizes(n: int, nv: int, t: int, group: int):
+    """(block table rows, pass-2 and combine rows, scratch slots) of K3
+    for ``n`` of the ``t`` real tiles over ``nv`` windows: bounds from the
+    shapes alone.  Each real tile owns w >= 1 windows of its own, so the
+    windows beyond one a tile sum to at most E = nv - t.  A split tile has
+    w - 1 >= group of them; its ceil(w / group) - 1 <= (w - 1) / group
+    groups after group 0, and its ceil(w / group) <= 2 (w - 1) / group
+    scratch slots."""
+    e = max(nv - t, 0)
+    if group <= 0:
+        return n, 0, 0
+    return n + e // group, e // group, 2 * e // group
+
+
+def exact_split_plan(vcounts: torch.Tensor, wt: torch.Tensor,
+                     last_v: torch.Tensor, group: int,
+                     order: torch.Tensor | None = None):
+    """K3's block tables, built on the tensors' device without a host
+    read.  The real tiles of ``order`` (all in tile order when not given),
+    in that order; a tile of at most ``group`` windows (or any tile when
+    ``group`` is 0) is one block, a deeper one is cut into groups of
+    ``group`` consecutive windows, one block each, in window order.
+
+    Returns (table, pass2, combine, slots), with E = T_v - T:
+    - table [n + E // group, 4] int32, one row per block of pass 1: real
+      tile, first window, windows, scratch slot q of a group (-1 for a tile
+      walked whole).  The groups of a tile have consecutive slots.  Rows
+      past the blocks in use have tile -1.
+    - pass2 [E // group, 4] int32: the rows of ``table`` for the groups
+      after each split tile's group 0, in table order; then tile -1.
+    - combine [E // group, 3] int32, one row per split tile in order:
+      tile, its first slot, its groups; rows past them tile -1.
+    - slots: the number of scratch slots to allocate (a bound on q + 1).
+    The sizes are bounds from the shapes (``_split_sizes``).  The plain
+    version of K3's plan kernel (``csrc/blend_exact.cu``
+    exact_plan_kernel), which writes the same rows."""
+    dev = last_v.device
+    if order is None:
+        order = torch.arange(last_v.shape[0], device=dev)
+    o = order.to(torch.int64)
+    n, nv = o.shape[0], vcounts.shape[0]
+    last = last_v.to(torch.int64)[o]
+    nw = wt.to(torch.int64)[last] + 1
+    first = last - nw + 1
+    n_table, n_extra, slots = _split_sizes(n, nv, last_v.shape[0], group)
+    none = torch.tensor([[-1, 0, 0, -1]], dtype=torch.int32, device=dev)
+    if group <= 0 or n == 0:
+        table = torch.stack([o, first, nw, torch.full_like(o, -1)], dim=1)
+        table = torch.cat([table.to(torch.int32),
+                           none.expand(n_table - n, 4)])
+        return (table.contiguous(), none.expand(n_extra, 4).contiguous(),
+                torch.full((n_extra, 3), -1, dtype=torch.int32, device=dev),
+                slots)
+    split = nw > group
+    ng = torch.where(split, (nw + group - 1) // group, torch.ones_like(nw))
+    ng_split = torch.where(split, ng, torch.zeros_like(ng))
+    q_first = torch.cumsum(ng_split, 0) - ng_split
+    ends = torch.cumsum(ng, 0)
+    b = torch.arange(n_table, device=dev)
+    i = torch.searchsorted(ends, b, right=True)
+    used = i < n
+    i = torch.clamp(i, max=n - 1)
+    g = b - (ends[i] - ng[i])
+    sp = split[i]
+    table = torch.stack([
+        torch.where(used, o[i], torch.full_like(i, -1)),
+        first[i] + g * group,
+        torch.where(sp, torch.clamp(nw[i] - g * group, max=group), nw[i]),
+        torch.where(sp, q_first[i] + g, torch.full_like(i, -1))],
+        dim=1).to(torch.int32)
+    # The rows of the groups after group 0, then the split tiles, each in
+    # order (stable sorts of a 0/1 key).
+    later = used & sp & (g > 0)
+    j = torch.sort((~later).to(torch.int8), stable=True).indices[:n_extra]
+    pass2 = torch.where(later[j, None], table[j], none)
+    j = torch.sort((~split).to(torch.int8), stable=True).indices[:n_extra]
+    combine = torch.stack([
+        torch.where(split[j], o[j], torch.full_like(j, -1)), q_first[j],
+        ng[j]], dim=1).to(torch.int32)
+    if combine.shape[0] < n_extra:
+        pad = torch.full((n_extra - combine.shape[0], 3), -1,
+                         dtype=combine.dtype, device=dev)
+        combine = torch.cat([combine, pad])
+    return (table.contiguous(), pass2.contiguous(), combine.contiguous(),
+            slots)
+
+
+def slot_alpha(slots: torch.Tensor, counts: torch.Tensor,
+               tiles: torch.Tensor, tiles_x: int):
+    """The alpha test of C slot lists [C, 10, L] (``counts`` live) at the
+    pixels of ``tiles``: (alpha, 0 where the test fails [C, 256, L]; ok,
+    the test passed on a live slot [C, 256, L]; live [C, 1, L])."""
+    ell = slots.shape[2]
+    px, py = _tile_pixels(tiles, tiles_x)
+    ch = lambda c: slots[:, c, None, :]                     # [C, 1, L]
+    dx = px[:, :, None] - ch(0)                             # [C, 256, L]
+    dy = py[:, :, None] - ch(1)
+    power = -0.5 * (ch(2) * dx * dx + ch(4) * dy * dy) - ch(3) * dx * dy
+    del dx, dy
+    alpha = torch.clamp(ch(8) * torch.exp(torch.clamp(power, max=0.0)),
+                        max=ALPHA_MAX)
+    live = (torch.arange(ell, device=slots.device)[None, :]
+            < counts[:, None])[:, None, :]
+    ok = (power <= 0.0) & (alpha >= ALPHA_MIN) & live
+    return torch.where(ok, alpha, torch.zeros_like(alpha)), ok, live
+
+
+def _walk_from_plain(slots: torch.Tensor, counts: torch.Tensor,
+                     tiles: torch.Tensor, tiles_x: int,
+                     tlog0: torch.Tensor) -> torch.Tensor:
+    """Plain walk of C slot lists [C, 10, L] (``counts`` live) entered
+    with log T ``tlog0`` [C, 256] (the kernels' rules: a slot that passes
+    the alpha test ends the walk, unincluded, where log T would fall below
+    log(1e-4)).  Returns rows [C, 8, 256]: R, G, B, invdepth, alpha (no
+    background), log T at the end, n_contrib, and 1.0 where it terminated.
+    """
+    alpha, ok, live = slot_alpha(slots, counts, tiles, tiles_x)
+    ch = lambda c: slots[:, c, None, :]                     # [C, 1, L]
+    lom = torch.log1p(-alpha)
+    cum = torch.cumsum(torch.cat([tlog0[:, :, None], lom], dim=-1),
+                       dim=-1)[..., 1:]
+    fail = ok & (cum < LOG_EPS)
+    include = (torch.cumsum(fail.to(torch.int32), dim=-1) == 0) & live
+    w = torch.where(include & ok, alpha * torch.exp(cum - lom),
+                    torch.zeros_like(alpha))
+    rgb = torch.bmm(w, slots[:, 5:8, :].transpose(1, 2))    # [C, 256, 3]
+    tlog = tlog0 + torch.sum(torch.where(include, lom,
+                                         torch.zeros_like(lom)), dim=-1)
+    return torch.stack([
+        rgb[..., 0], rgb[..., 1], rgb[..., 2], torch.sum(w * ch(9), dim=-1),
+        torch.sum(w, dim=-1), tlog, torch.sum(include, dim=-1).to(w.dtype),
+        fail.any(dim=-1).to(w.dtype)], dim=1)
+
+
+def blend_exact_split_plain(attrs: torch.Tensor, vcounts: torch.Tensor,
+                            wt: torch.Tensor, last_v: torch.Tensor,
+                            bg: torch.Tensor, tiles_x: int, t_mod: int = 0,
+                            group: int | None = None) -> torch.Tensor:
+    """Plain PyTorch twin of K3's window split (``csrc/blend_exact.cu``
+    phases A, B and C, in its two passes) on the blocks of
+    ``exact_split_plan`` (``group`` defaults to EXACT_GROUP): each group's
+    drop in log T (group 0's from its own walk), each block's walk from the
+    sum of its tile's earlier drops (dead on entry below log(1e-4)), and
+    the per-tile combine.  For tests and the smoke's
+    comparison; the render path does not use it.  Returns [T, 8, 256]."""
+    group = EXACT_GROUP if group is None else group
+    dev, k = attrs.device, attrs.shape[1]
+    table, _, combine, _ = exact_split_plan(vcounts, wt, last_v, group)
+    table = table[table[:, 0] >= 0].to(torch.int64)
+    tile, v0, nw, q = table.unbind(1)
+    out = torch.empty((last_v.shape[0], N_OUT, P), dtype=attrs.dtype,
+                      device=dev)
+    grp = q >= 0
+    n_q = int(q.max()) + 1 if bool(grp.any()) else 0
+    v_last = last_v.to(torch.int64)[tile]
+    g = torch.where(grp, (v0 - (v_last - wt.to(torch.int64)[v_last]))
+                    // max(group, 1), torch.zeros_like(v0))
+    drop = torch.zeros((n_q, P), dtype=attrs.dtype, device=dev)
+    part = torch.empty((n_q, N_OUT, P), dtype=attrs.dtype, device=dev)
+    start = torch.zeros((table.shape[0], P), dtype=attrs.dtype, device=dev)
+
+    def walk(rows_of):
+        """B on the table rows ``rows_of`` from their ``start``."""
+        for s, e, v, _, total in _run_chunks(vcounts, v0[rows_of],
+                                             nw[rows_of], k, _PLAIN_ELEMS):
+            r = rows_of[s:e]
+            slots = attrs[v].reshape(e - s, -1, N_CH).transpose(1, 2)
+            rows = _walk_from_plain(slots, total, _tile_mod(tile[r], t_mod),
+                                    tiles_x, start[r])
+            rows[:, 7] += 2.0 * (start[r] < LOG_EPS)
+            whole = ~grp[r]
+            out[tile[r][whole]] = _composite(rows[whole], bg)
+            part[q[r][~whole]] = rows[~whole]
+            # Group 0's drop: its end log T, or -inf where it terminated.
+            first = grp[r] & (g[r] == 0)
+            drop[q[r][first]] = torch.where(rows[first, 7] > 0,
+                                            -math.inf, rows[first, OT])
+
+    # Pass 1: tiles walked whole and every group 0; A for groups 1 .. ng-2.
+    walk(torch.nonzero(g == 0).flatten())
+    mid = torch.nonzero(grp & (g > 0) & (v0 + nw <= v_last)).flatten()
+    for s, e, v, _, total in _run_chunks(vcounts, v0[mid], nw[mid], k,
+                                         _PLAIN_ELEMS):
+        slots = attrs[v].reshape(e - s, -1, N_CH).transpose(1, 2)
+        drop[q[mid[s:e]]] = _drop_plain(slots, total,
+                                        _tile_mod(tile[mid[s:e]], t_mod),
+                                        tiles_x)
+    # Pass 2: S_g, the tile's earlier drops in group order; B for g >= 1.
+    for h in range(int(g.max()) if table.shape[0] else 0):
+        more = g > h
+        start[more] = start[more] + drop[(q - g + h)[more]]
+    walk(torch.nonzero(g > 0).flatten())
+    # C: each split tile's groups in order.
+    combine = combine[combine[:, 0] >= 0].to(torch.int64)
+    if combine.shape[0]:
+        t_c, q0, ng = combine.unbind(1)
+        acc = torch.zeros((t_c.shape[0], N_OUT, P), dtype=attrs.dtype,
+                          device=dev)
+        going = torch.ones((t_c.shape[0], P), dtype=torch.bool, device=dev)
+        for h in range(int(ng.max())):
+            p = part[torch.clamp(q0 + h, max=n_q - 1)]
+            take = going & (h < ng)[:, None]
+            for r in (OR, OG, OB, OI, OA, ON):
+                acc[:, r] = torch.where(take, acc[:, r] + p[:, r], acc[:, r])
+            alive_in = take & (p[:, 7] < 2.0)
+            acc[:, OT] = torch.where(alive_in, p[:, OT], acc[:, OT])
+            going = going & ~(take & ((p[:, 7] == 1.0) | (p[:, 7] == 3.0)))
+        out[t_c] = _composite(acc, bg)
+    return out
+
+
+def _tile_mod(tiles: torch.Tensor, t_mod: int) -> torch.Tensor:
+    return tiles % t_mod if t_mod else tiles
+
+
+def _drop_plain(slots: torch.Tensor, counts: torch.Tensor,
+                tiles: torch.Tensor, tiles_x: int) -> torch.Tensor:
+    """Phase A of the split: per pixel the sum, in slot order, of
+    log1p(-alpha) over the live slots that pass the alpha test [C, 256]."""
+    lom = torch.log1p(-slot_alpha(slots, counts, tiles, tiles_x)[0])
+    return torch.cumsum(lom, dim=-1)[..., -1]
+
+
+def _composite(rows: torch.Tensor, bg: torch.Tensor) -> torch.Tensor:
+    """Partial rows [C, 8, 256] -> output rows: background under the final
+    transmittance, pad row 0."""
+    out = rows.clone()
+    tf = torch.exp(rows[:, OT])
+    for c in range(3):
+        out[:, c] = rows[:, c] + tf * bg.reshape(-1)[c]
+    out[:, 7] = 0.0
     return out
 
 
@@ -344,13 +611,29 @@ def blend_padded_bwd(attrs: torch.Tensor, counts: torch.Tensor,
     return d
 
 
-def exact_bwd_order(wt: torch.Tensor, last_v: torch.Tensor) -> torch.Tensor:
+def exact_tile_order(wt: torch.Tensor, last_v: torch.Tensor) -> torch.Tensor:
     """K4's launch order: the real tiles [T] int32 by window count
     (``wt[last_v] + 1``), deepest first, ties in tile order (a stable
     sort), so the tiles with the most windows do not start last."""
     windows = wt[last_v.to(torch.int64)] + 1
     order = torch.sort(windows, descending=True, stable=True).indices
     return order.to(torch.int32)
+
+
+def _check_order(order: torch.Tensor, t: int, what: str,
+                 device: torch.device) -> None:
+    """An order is distinct real-tile ids in [0, t): the kernels index
+    the layout with them and size their tables from t.  (The range and
+    distinctness checks read the order back to the host.)"""
+    _check(order, "order", torch.int32, 1, device)
+    if order.shape[0] > t:
+        raise ValueError(f"{what}: order has {order.shape[0]} entries for "
+                         f"{t} tiles")
+    if order.shape[0] and (int(order.min()) < 0 or int(order.max()) >= t
+                           or torch.unique(order).shape[0]
+                           != order.shape[0]):
+        raise ValueError(f"{what}: order must hold distinct tile ids in "
+                         f"[0, {t})")
 
 
 def blend_exact_bwd(attrs: torch.Tensor, vcounts: torch.Tensor,
@@ -363,7 +646,7 @@ def blend_exact_bwd(attrs: torch.Tensor, vcounts: torch.Tensor,
     grads [T_v, K, 10] (zeros past each window's count and in budget
     windows no tile uses).  Launches ``csrc/blend_exact_bwd.cu`` on CUDA
     tensors, one block per entry of ``order`` (int32 real-tile ids;
-    ``exact_bwd_order`` when not given): a tile left out gets no grads, and
+    ``exact_tile_order`` when not given): a tile left out gets no grads, and
     the order changes no tile's grads.  Runs ``blend_exact_bwd_plain`` on
     CPU tensors, which ignores ``order``."""
     dev = attrs.device
@@ -374,21 +657,62 @@ def blend_exact_bwd(attrs: torch.Tensor, vcounts: torch.Tensor,
             raise ValueError(f"blend_exact_bwd: {name} has shape "
                              f"{tuple(x.shape)}, expected {(t, N_OUT, P)}")
     if order is not None:
-        _check(order, "order", torch.int32, 1, dev)
-        if order.shape[0] > t:
-            raise ValueError(f"blend_exact_bwd: order has {order.shape[0]} "
-                             f"entries for {t} tiles")
+        _check_order(order, t, "blend_exact_bwd", dev)
     if not _kernel_device(attrs, "blend_exact_bwd"):
         return blend_exact_bwd_plain(attrs, vcounts, wt, last_v, bg, saved,
                                      g_out, tiles_x, t_mod)
+    return blend_exact_bwd_launch(attrs, vcounts, wt, last_v, bg, saved,
+                                  g_out, tiles_x, t_mod, order)
+
+
+def blend_exact_bwd_launch(attrs: torch.Tensor, vcounts: torch.Tensor,
+                           wt: torch.Tensor, last_v: torch.Tensor,
+                           bg: torch.Tensor, saved: torch.Tensor,
+                           g_out: torch.Tensor, tiles_x: int, t_mod: int,
+                           order: torch.Tensor | None) -> torch.Tensor:
+    """Launch K4 (``csrc/blend_exact_bwd.cu``) on checked CUDA tensors
+    over the real tiles of ``order`` (``exact_tile_order`` when None), with
+    no host read; returns the grads."""
     if order is None:
-        order = exact_bwd_order(wt, last_v)
+        order = exact_tile_order(wt, last_v)
     d = torch.zeros_like(attrs)
     native.launch("blend_exact_bwd", attrs.data_ptr(), vcounts.data_ptr(),
                   wt.data_ptr(), last_v.data_ptr(), order.data_ptr(),
                   bg.data_ptr(), order.shape[0], attrs.shape[1], tiles_x,
                   t_mod, saved.data_ptr(), g_out.data_ptr(), d.data_ptr())
     return d
+
+
+def blend_exact_launch(attrs: torch.Tensor, vcounts: torch.Tensor,
+                       wt: torch.Tensor, last_v: torch.Tensor,
+                       bg: torch.Tensor, tiles_x: int, t_mod: int,
+                       order: torch.Tensor | None,
+                       group: int) -> torch.Tensor:
+    """Launch K3 (``csrc/blend_exact.cu``: the plan, pass 1 and, where
+    the shapes allow a split, pass 2 and the combine) on checked CUDA
+    tensors over the real tiles of ``order`` (all, in tile order, when
+    None) with windows split in groups of ``group`` (0: no split).
+    Allocates the block tables (which the kernel fills), the scratch for
+    the split's drops and partial rows, and the [T, 8, 256] output (rows
+    of tiles left out of ``order`` not written), which it returns."""
+    dev = attrs.device
+    t = last_v.shape[0]
+    n = t if order is None else order.shape[0]
+    n_table, n_extra, slots = _split_sizes(n, vcounts.shape[0], t, group)
+    table = torch.empty((n_table, 4), dtype=torch.int32, device=dev)
+    pass2 = torch.empty((n_extra, 4), dtype=torch.int32, device=dev)
+    combine = torch.empty((n_extra, 3), dtype=torch.int32, device=dev)
+    drop = torch.empty((slots, P), dtype=torch.float32, device=dev)
+    part = torch.empty((slots, N_OUT, P), dtype=torch.float32, device=dev)
+    out = torch.empty((t, N_OUT, P), dtype=torch.float32, device=dev)
+    native.launch("blend_exact", attrs.data_ptr(), vcounts.data_ptr(),
+                  wt.data_ptr(), last_v.data_ptr(),
+                  None if order is None else order.data_ptr(), n,
+                  bg.data_ptr(), attrs.shape[1], group, tiles_x, t_mod,
+                  table.data_ptr(), n_table, pass2.data_ptr(),
+                  combine.data_ptr(), n_extra, drop.data_ptr(),
+                  part.data_ptr(), out.data_ptr())
+    return out
 
 
 class _BlendPadded(torch.autograd.Function):
@@ -420,15 +744,10 @@ class _BlendPadded(torch.autograd.Function):
 
 class _BlendExact(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, attrs, vcounts, wt, last_v, bg, tiles_x, t_mod):
-        _, k, _ = attrs.shape
-        t = last_v.shape[0]
+    def forward(ctx, attrs, vcounts, wt, last_v, bg, tiles_x, t_mod, order):
         if _kernel_device(attrs, "blend_exact"):
-            out = torch.empty((t, N_OUT, P), dtype=torch.float32,
-                              device=attrs.device)
-            native.launch("blend_exact", attrs.data_ptr(), vcounts.data_ptr(),
-                          wt.data_ptr(), last_v.data_ptr(), bg.data_ptr(), t,
-                          k, tiles_x, t_mod, out.data_ptr())
+            out = blend_exact_launch(attrs, vcounts, wt, last_v, bg, tiles_x,
+                                     t_mod, order, EXACT_GROUP)
         else:
             out = blend_exact_plain(attrs, vcounts, wt, last_v, bg, tiles_x,
                                     t_mod)
@@ -443,7 +762,7 @@ class _BlendExact(torch.autograd.Function):
         d = blend_exact_bwd(attrs, vcounts, wt, last_v, bg, saved, g_out,
                             *ctx.grid)
         g_bg = background_grad(saved, g_out, False)
-        return d, None, None, None, g_bg, None, None
+        return d, None, None, None, g_bg, None, None, None
 
 
 def blend_padded(attrs: torch.Tensor, counts: torch.Tensor, bg: torch.Tensor,
@@ -467,10 +786,15 @@ def blend_padded(attrs: torch.Tensor, counts: torch.Tensor, bg: torch.Tensor,
 
 def blend_exact(attrs: torch.Tensor, vcounts: torch.Tensor, wt: torch.Tensor,
                 last_v: torch.Tensor, bg: torch.Tensor, tiles_x: int,
-                t_mod: int = 0) -> torch.Tensor:
+                t_mod: int = 0,
+                order: torch.Tensor | None = None) -> torch.Tensor:
     """K3.  attrs [T_v, K, 10] f32 pair-major over virtual tiles; vcounts,
     wt [T_v] and last_v [T] int32 from exact-mode ``TileBins``; bg [1, 3].
-    Returns [T, 8, 256] per real tile."""
+    Returns [T, 8, 256] per real tile.  On CUDA tensors the kernel takes
+    the real tiles in tile order, or those of ``order`` (distinct int32
+    tile ids) in that order: a tile left out is not written, and the order
+    changes no tile's rows.  On CPU tensors ``blend_exact_plain`` runs,
+    which ignores ``order``."""
     dev = attrs.device
     _check(attrs, "attrs", torch.float32, 3, dev)
     for name, x in (("vcounts", vcounts), ("wt", wt), ("last_v", last_v)):
@@ -482,8 +806,10 @@ def blend_exact(attrs: torch.Tensor, vcounts: torch.Tensor, wt: torch.Tensor,
         raise ValueError("blend_exact: inconsistent shapes "
                          f"{tuple(attrs.shape)} {tuple(vcounts.shape)} "
                          f"{tuple(wt.shape)} {tuple(bg.shape)}")
+    if order is not None:
+        _check_order(order, last_v.shape[0], "blend_exact", dev)
     return _BlendExact.apply(attrs, vcounts, wt, last_v, bg, int(tiles_x),
-                             int(t_mod))
+                             int(t_mod), order)
 
 
 def _round_bf16(x: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """PyTorch port, backward blend kernels: the plain versions of K2
 (``blend_padded_bwd``) and K4 (``blend_exact_bwd``, and its launch order
-``exact_bwd_order``), reached through the
+``exact_tile_order``), reached through the
 autograd ``backward`` of ``blend_padded`` / ``blend_exact`` on CPU tensors,
 against JAX's ``_blend_packed_bwd`` / ``_blend_exact_bwd`` in interpret
 mode, fed through ``jax.vjp`` of ``_blend_packed`` / ``_blend_exact`` on the
@@ -228,13 +228,13 @@ ORDER_LAYOUTS = {"no_tile": no_tile_layout, "one_tile": one_tile_layout,
 
 @pytest.mark.parametrize("layout", sorted(ORDER_LAYOUTS))
 def test_k4_launch_order(layout):
-    """``exact_bwd_order`` (K4's launch order) is a permutation of the real
+    """``exact_tile_order`` (K4's launch order) is a permutation of the real
     tiles, deepest first, ties in tile order; and the backward on CPU
     tensors (the plain version) gives the same grads with or without it.
     A bad order is refused."""
     attrs, vcounts, wt, last_v, tiles_x = ORDER_LAYOUTS[layout]()
     t = last_v.shape[0]
-    order = cb.exact_bwd_order(wt, last_v)
+    order = cb.exact_tile_order(wt, last_v)
     assert order.dtype == torch.int32
     assert sorted(order.tolist()) == list(range(t))
     windows = (wt.to(torch.int64)[last_v.to(torch.int64)] + 1)[
