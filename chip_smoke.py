@@ -15,8 +15,11 @@ against its plain PyTorch version:
              with the end of the keys) and the kernel-floor stubs D1-D3 on
              small inputs against their plain versions; K2 and K4 launched
              twice (bit-identical), K4 also in another tile order (equal);
-             K3's window split at groups of 1, 2 and 3 windows against
-             its plain twin and the plain version;
+             K2 also with faint wide slots (opacity 1/255 +- 1e-6, alphas
+             on both sides of the 1/255 test) and at K = 100; K3's window
+             split at groups of 1, 2 and 3 windows against its plain twin
+             and the plain version; D1-D3 at groups of 0 (no split), 1, 2, 3 and
+             4 windows and 1, 2, 4, 8 table rows a block;
 3. grads_small — ``rasterize`` and its backward on a toy scene in the
              padded and the exact+counts config, on the card (kernels) and
              on the CPU (plain versions);
@@ -30,10 +33,14 @@ against its plain PyTorch version:
 6. layers  — the stages of one street render timed apart, and a profile
              of it (device time by op, device idle share);
 7. kernel_floor — ``tools/kernel_floor``'s measurements on phase 4's view-0
-             exact binning: the real K3 against the stubs D1 (channel-major,
-             levels 2..-2), D2 (pair-major, levels 2, 0, -1) and D3 (level
-             0, 1/2/4/8 tiles a block), each held against its plain version,
-             and the mechanics / loads / math split;
+             exact binning: the real K3 (with and without its split)
+             against the stubs on K3's own kernels, D1 (channel-major,
+             levels 2..-2), D2 (pair-major, levels 2, 0, -1), D3 (level
+             0, 1/2/4/8 table rows a block) and D1, D2 level 2 without the
+             split, each held against its plain version, and the
+             mechanics / loads split, each field named for the probe and
+             layout it reads (no math share: level 2 is heavier than K3's
+             walk);
 8. train_street — 12 steps of ``make_train_step`` on the street scene in
              the production config (K5, K3, K4), GT from the plain forward;
 9. train_bench — 20 steps in the bench.py config (512x512, 32k Gaussians,
@@ -50,7 +57,8 @@ against its plain PyTorch version:
 12. kernels_street — K1-K5 timed at the shapes of phases 4, 8, 9, and K3,
              K4 at those of phase 11, K1 at phase 9's, K2 at phase 10's:
              ``ms`` is device time (``profiling.device_ms``), ``wall_ms``
-             the events around back-to-back calls, host cost included; K3
+             the events around back-to-back calls, host cost included; K2
+             beside its launch floor (the same call with every count 0); K3
              and K4 launched twice (bit-identical) and over their deepest
              tile alone (its share of the launch); K1-K4: the walked and
              the passing (slot, pixel) steps and the share of walked
@@ -815,6 +823,19 @@ def k4_checks(args, ms: float) -> dict:
             "ms": deep_ms, "share_of_launch": deep_ms / ms}
 
 
+def k2_launch_floor(args, reps: int, ms: float) -> dict:
+    """K2's launch floor at the shapes of a recorded call ``args``: the
+    device time of the same launch with every count 0 (no slot walked,
+    every grad still written as a zero).  The walk is launch-floor-bound
+    where the floor is at least half of the call's device ``ms``."""
+    from street_sparse_3dgs_tpu_torch.ops import cuda_blend as cb
+    from street_sparse_3dgs_tpu_torch.profiling import device_ms
+    empty = (args[0], torch.zeros_like(args[1])) + tuple(args[2:])
+    floor = device_ms(lambda: cb.blend_padded_bwd(*empty), reps)
+    return {"launch_floor_ms": floor, "launch_floor_share": floor / ms,
+            "launch_floor_bound": floor >= 0.5 * ms}
+
+
 def k3_checks(args, ms: float) -> dict:
     """K3 on recorded inputs ``args``: two launches bit-identical, and the
     deepest tile (the first of ``exact_tile_order``) launched alone
@@ -1051,6 +1072,32 @@ def main() -> int:
             live = torch.clamp(a[1].to(torch.int64), max=k_small)[:, None]
             cmp["terminated_pixels"] = int((saved[:, 6] < live).sum())
             small[f"K2 tile0={tile0} bg={tuple(bg.shape)}"] = cmp
+    # K2 with faint slots: a fifth of the slots at opacity 1/255 +- 1e-6
+    # and wide, their alphas on both sides of the 1/255 test over the
+    # frame; and at K = 100 (not a multiple of the 64-slot chunk), counts
+    # over K.
+    faint = attrs.clone()
+    pick = torch.rand(t_small, k_small, generator=g) < 0.2
+    faint[:, 8] = torch.where(pick, 1 / 255 + 2e-6 * (torch.rand(
+        t_small, k_small, generator=g) - 0.5), faint[:, 8])
+    wide = 10 ** (-7 + 2.5 * torch.rand(t_small, k_small, generator=g))
+    for ch in (2, 4):
+        faint[:, ch] = torch.where(pick, wide, faint[:, ch])
+    faint[:, 3] = torch.where(pick, torch.zeros_like(wide), faint[:, 3])
+    for name, (a_k, c_k) in {
+            "faint slots": (faint, counts),
+            "K=100": (attrs[:, :, :100].contiguous(), torch.randint(
+                0, 130, (t_small,), generator=g, dtype=torch.int32))}.items():
+        a = [x.to(dev) for x in (a_k, c_k, bgs[1])]
+        grid = (tiles_x, 0, 0)
+        saved = cb.blend_padded(*a, *grid)
+        go = g_small.to(dev)
+        d1 = cb.blend_padded_bwd(*a, saved, go, *grid)
+        want = cb.blend_padded_bwd_plain(*a, saved, go, *grid)
+        cmp = compare_grads(f"K2 small {name}", d1, want, 1)
+        if not torch.equal(d1, cb.blend_padded_bwd(*a, saved, go, *grid)):
+            raise AssertionError(f"K2 small {name}: two launches differ")
+        small[f"K2 {name}"] = cmp
     pairs_b = bait.permute(0, 2, 1).reshape(-1, 10)[:20 * 128]
     a = [x.to(dev) for x in (pairs_b.reshape(20, 128, 10).contiguous(),
                              vcounts, wt, last_v,
@@ -1087,9 +1134,10 @@ def main() -> int:
     # D1-D3: the kernel-floor stubs on K3's layout above (multi-window
     # tiles, an empty window, partial windows, unused budget windows, random
     # values in the padding lanes) and on a K = 256 layout (two 128-slot
-    # blocks a window), every level in both layouts at 1, 2, 4 and 8 tiles a
-    # block, against the plain versions (levels 0, -1, -2 equal; 2 and 1
-    # within kf.SUM_RTOL of each pixel's sum of |terms|).
+    # blocks a window), every level in both layouts, split at groups of 0
+    # (none), 1, 2, 3 and 4 windows, at 1, 2, 4 and 8 table rows a block,
+    # against the plain versions (levels 0, -1, -2 equal; 2 and 1 within
+    # kf.SUM_RTOL of each pixel's sum of |terms|).
     stub_layouts = {
         "K=128": (pairs, vcounts, wt, last_v),
         "K=256": (attrs.permute(0, 2, 1).reshape(-1, 10)[:10 * 256]
@@ -1109,9 +1157,10 @@ def main() -> int:
                 stubs_small[f"{lname} L{level} "
                             f"{'pair' if pm else 'channel'}-major"] = max(
                     kf.stub_error(kf.blend_exact_stub(*args, 3, level, pm,
-                                                      tpb), want, terms,
-                                  level)
-                    for tpb in kf.TILES_PER_BLOCK_D3)
+                                                      tpb, group), want,
+                                  terms, level)
+                    for tpb in kf.TILES_PER_BLOCK_D3
+                    for group in (0, 1, 2, 3, cb.EXACT_GROUP))
     small["D1-D3"] = stubs_small
     torch.cuda.synchronize()
     emit({"phase": "kernels_small", "seconds": time.perf_counter() - t0,
@@ -1443,7 +1492,8 @@ def main() -> int:
             "shapes": shapes, "live_slots": live, **walk,
             "tiles": args[5 if exact else 3].shape[0],
             **({"bit_identical_reruns": True,
-                "deepest_tile": k4_checks(args, ms)} if exact else {})})
+                "deepest_tile": k4_checks(args, ms)} if exact
+               else k2_launch_floor(args, 20, ms))})
 
     # K2 at the train_loop_toy shapes (its first step, 64x64, K = 128), and
     # K1 on the forward whose saved rows that K2 call read.
@@ -1461,14 +1511,15 @@ def main() -> int:
     cmp = compare_grads("K2 at train_loop_toy", out,
                         cb.blend_padded_bwd_plain(*args), 1)
     b_ms, b_by, live, walk = bwd_bound(args, False, sfu_rate)
+    k2_ms = device_ms(lambda: cb.blend_padded_bwd(*args), 50)
     next(k for k in kernels if k["name"].startswith("K2"))[
         "at_train_loop_toy"] = {
-        "ms": device_ms(lambda: cb.blend_padded_bwd(*args), 50),
+        "ms": k2_ms,
         "wall_ms": event_ms(lambda: cb.blend_padded_bwd(*args), 50),
         "plain_ms": event_ms(lambda: cb.blend_padded_bwd_plain(*args), 5),
         "bound_ms": b_ms, "bound_by": b_by,
         "max_scaled_err": cmp["max_scaled_err"], "live_slots": live,
-        **walk}
+        **walk, **k2_launch_floor(args, 50, k2_ms)}
 
     # K3 and K4 at the train_street_auto shapes (960x544, its first resume
     # step): time, bound and agreement with the plain version there too.
@@ -1549,11 +1600,13 @@ def main() -> int:
                                           for r in recs),
             "tolerance": f"levels 0, -1, -2 equal; levels 2, 1 within "
                          f"{kf.SUM_RTOL} x sum|terms| per pixel",
-            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "ms": head["ms"], "wall_ms": head["wall_ms"],
+            "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": None, "shapes": "street view 0",
             "headline": (f"level {head['level']}, {head['layout']}, "
-                         f"{head['tiles_per_block']} tile(s) a block"),
+                         f"{head['tiles_per_block']} table row(s) a block, "
+                         f"group {head['group']}"),
             "variants": recs})
     torch.cuda.synchronize()
     emit({"phase": "kernels_street", "seconds": time.perf_counter() - t0,

@@ -18,43 +18,28 @@
 // summed over the tile's pixels in a fixed order, so reruns are
 // bit-identical.
 //
-// Bound on the card: as K3, the special-function units (three per walked
-// slot-pixel step); bytes are the pair attrs, the saved and cotangent rows
-// read once and the grads written once.  What the design does about the
-// rest of the work (the per-slot reduction over 256 pixels, which is not in
-// the bound, and the serial walk of deep tiles):
-// - a vote first: a warp in which no pixel passes the alpha test of a slot
-//   writes zero partials and does neither the rest of that slot's
-//   backward nor a reduction (exact: its partials are 0);
-// - one transpose-reduction per contributing warp-slot instead of ten
-//   butterflies: a recursive-halving reduce-scatter of the ten partials
-//   (padded to 16) over the lanes, 12 shuffles where ten butterflies take
-//   50, after which lane c holds the warp's sum of channel c;
-// - two slots a round, as one straight run: their alpha tests, logs, exps
-//   and reductions are independent and overlap, which shortens the chain
-//   of latencies a warp waits on per slot (what sets the time of a deep
-//   tile, whose block runs mostly alone at the end of the launch);
-// - 64 slots staged and reduced a round: one barrier pair and one pass of
-//   warp-partial sums per 64 slots;
-// - blocks take the tiles deepest first (``order``, from the wrapper), so
-//   the tiles with the most windows do not start last and set the tail.
-// The gradient arithmetic after the alpha test uses explicit fused
-// multiply-adds and a fast division by max(1 - alpha, 1e-4) (2 ulp); the
-// alpha test itself (power, alpha, the skip test) keeps the separate
-// products of eval_slot, as the build's -fmad=false asks, and log1p and exp
-// stay the accurate ones: log T is rebuilt by subtracting them slot after
-// slot.
-//
-// K2 (blend_padded_bwd.cu) keeps the shared walk of blend_common.cuh.
+// Bound on the card: the work the data needs is, per walked slot-pixel
+// step (a slot below the pixel's n_contrib), the power (11 f32
+// operations), and per step that passes the alpha test three
+// special-function results (expf(power), log1pf(-alpha), exp(log T
+// before)) and 50 f32 operations (the ten partials and the carry); bytes
+// are the pair attrs, the saved and cotangent rows read once and the grads
+// written once (chip_smoke.py FLOPS_PER_WALK, SFU_PER_PASS,
+// BWD_FLOPS_PER_PASS; it takes the largest of the three per call).  The
+// rest of the work (the per-slot reduction over 256 pixels, which is not
+// in the bound, and the serial walk of deep tiles) is what the design
+// addresses: the walk of blend_bwd.cuh (a vote before each slot, one
+// reduce-scatter of the ten partials, two slots a round, 64 slots staged
+// and reduced a round; shared with K2), and blocks that take the tiles
+// deepest first (``order``, from the wrapper), so that the tiles with the
+// most windows do not start last and set the tail.  K4 stages each chunk
+// synchronously as ten floats a slot and takes no skip ahead of expf.
 
-#include "blend_common.cuh"
+#include "blend_bwd.cuh"
 
 using namespace blend;
 
 namespace {
-
-constexpr int kChunk4 = 64;            // slots staged and reduced per round
-constexpr unsigned kFull = 0xffffffffu;
 
 // A staged slot's ten channels, read from shared memory into registers.
 struct Staged {
@@ -69,127 +54,6 @@ __device__ __forceinline__ Staged load_slot(const float* sh, int j) {
   return s;
 }
 
-// The backward of one slot for one pixel after its alpha test ``e``: the
-// ten partials to ``d`` and the carry updated (the formulas of
-// blend_common.cuh blend_slot_bwd).  ``live`` (slot index below n_contrib
-// and the alpha test passed) gates it lane by lane with selects, not
-// branches, so that two slots' backwards form one straight run: a slot
-// that does not contribute gets zero partials and leaves the carry as it
-// is (its alpha counts as 0, and log1p(-0) = 0).
-template <typename Slot>
-__device__ __forceinline__ void slot_bwd(const Slot& s, const SlotEval& e,
-                                         bool live, BwdPixel& st, float* d) {
-  const float alpha = live ? e.alpha : 0.f;
-  const float tlog_before = st.tlog_after - log1pf(-alpha);
-  const float t_excl = expf(tlog_before);
-  const float w = alpha * t_excl;
-  const float pg = fmaf(st.gr, s(CR), fmaf(st.gg, s(CG), fmaf(
-      st.gb, s(CBL), fmaf(st.gi, s(ID), st.ga))));
-  const float g_alpha =
-      live && e.raw < kAlphaMax
-          ? fmaf(t_excl, pg, -__fdividef(st.suffix + st.gtf,
-                                         fmaxf(1.f - alpha, 1e-4f)))
-          : 0.f;
-  const float g_power = alpha * g_alpha;
-  const float dx = e.dx, dy = e.dy;
-  d[MX] = g_power * fmaf(s(CA), dx, s(CB) * dy);
-  d[MY] = g_power * fmaf(s(CC), dy, s(CB) * dx);
-  d[CA] = g_power * (-0.5f * dx * dx);
-  d[CB] = g_power * (-dx * dy);
-  d[CC] = g_power * (-0.5f * dy * dy);
-  d[CR] = st.gr * w;
-  d[CG] = st.gg * w;
-  d[CBL] = st.gb * w;
-  d[OP] = e.expp * g_alpha;
-  d[ID] = w * st.gi;
-  if (live) st.suffix = fmaf(w, pg, st.suffix);
-  st.tlog_after = tlog_before;
-}
-
-// One halving step: the lane whose ``bit`` is set keeps ``hi`` and sends
-// ``lo`` to its partner ``off`` lanes away, the other keeps ``lo`` and
-// sends ``hi``; each adds what it receives to what it keeps.
-__device__ __forceinline__ float halve(float lo, float hi, bool bit,
-                                       int off) {
-  const float keep = bit ? hi : lo;
-  const float send = bit ? lo : hi;
-  return keep + __shfl_xor_sync(kFull, send, off);
-}
-
-// Reduce-scatter of the ten partials over the warp: returns, in lane c and
-// lane c + 16, the warp's sum of channel c (c < 10; lanes 10-15 and 26-31
-// get zeros).  Step i halves the channels by channel bit i against lane
-// bit i; the last step adds the two half-warps.  A fixed order of sums.
-__device__ __forceinline__ float reduce_scatter(const float* d, int lane) {
-  const bool b0 = lane & 1, b1 = lane & 2, b2 = lane & 4, b3 = lane & 8;
-  // a_i: channel 2i + b0
-  const float a0 = halve(d[0], d[1], b0, 1), a1 = halve(d[2], d[3], b0, 1),
-              a2 = halve(d[4], d[5], b0, 1), a3 = halve(d[6], d[7], b0, 1),
-              a4 = halve(d[8], d[9], b0, 1);
-  // c_i: channel 4i + 2 b1 + b0
-  const float c0 = halve(a0, a1, b1, 2), c1 = halve(a2, a3, b1, 2),
-              c2 = halve(a4, 0.f, b1, 2);
-  // e_i: channel 8i + 4 b2 + 2 b1 + b0
-  const float e0 = halve(c0, c1, b2, 4), e1 = halve(c2, 0.f, b2, 4);
-  // channel lane & 15
-  const float f = halve(e0, e1, b3, 8);
-  return f + __shfl_xor_sync(kFull, f, 16);
-}
-
-// Reverse walk over ``n`` staged slots (local index j, slot-list index
-// k0 + j) of one chunk, two a round (j, then j - 1; the first slot alone
-// when n is odd); the warp's sums of slot j go to part[warp][j][c].
-__device__ __forceinline__ void walk_chunk(const float* sh, int n, int k0,
-                                           BwdPixel& st,
-                                           float (*part)[kChunk4][kCh]) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int j = n - 1;
-  for (; j >= 1; j -= 2) {
-    float ra = 0.f, rb = 0.f;
-    if (__any_sync(kFull, k0 + j - 1 < st.nc)) {
-      const Staged sa = load_slot(sh, j), sb = load_slot(sh, j - 1);
-      const SlotEval ea = eval_slot(sa, st.px, st.py);
-      const SlotEval eb = eval_slot(sb, st.px, st.py);
-      const bool la = k0 + j < st.nc && ea.ok;
-      const bool lb = k0 + j - 1 < st.nc && eb.ok;
-      const unsigned ba = __ballot_sync(kFull, la);
-      const unsigned bb = __ballot_sync(kFull, lb);
-      float da[kCh], db[kCh];
-      if (ba && bb) {
-        slot_bwd(sa, ea, la, st, da);
-        slot_bwd(sb, eb, lb, st, db);
-        ra = reduce_scatter(da, lane);
-        rb = reduce_scatter(db, lane);
-      } else if (ba) {
-        slot_bwd(sa, ea, la, st, da);
-        ra = reduce_scatter(da, lane);
-      } else if (bb) {
-        slot_bwd(sb, eb, lb, st, db);
-        rb = reduce_scatter(db, lane);
-      }
-    }
-    if (lane < kCh) {
-      part[warp][j][lane] = ra;
-      part[warp][j - 1][lane] = rb;
-    }
-  }
-  if (j == 0) {
-    float r = 0.f;
-    if (__any_sync(kFull, k0 < st.nc)) {
-      const Staged s = load_slot(sh, 0);
-      const SlotEval e = eval_slot(s, st.px, st.py);
-      const bool l = k0 < st.nc && e.ok;
-      if (__ballot_sync(kFull, l)) {
-        float d[kCh];
-        slot_bwd(s, e, l, st, d);
-        r = reduce_scatter(d, lane);
-      }
-    }
-    if (lane < kCh) part[warp][0][lane] = r;
-  }
-}
-
 __global__ void __launch_bounds__(kPix)
 blend_exact_bwd_kernel(const float* __restrict__ attrs,
                        const int* __restrict__ vcounts,
@@ -200,8 +64,8 @@ blend_exact_bwd_kernel(const float* __restrict__ attrs,
                        int t_mod, const float* __restrict__ saved,
                        const float* __restrict__ g_out,
                        float* __restrict__ d_attrs) {
-  __shared__ float sh[kChunk4 * kCh];
-  __shared__ float part[kWarps][kChunk4][kCh];
+  __shared__ float sh[kBwdChunk * kCh];
+  __shared__ BwdPart part;
   const int t = order[blockIdx.x];
   const int pix = threadIdx.x;
   const int tl = t_mod ? t % t_mod : t;
@@ -215,15 +79,17 @@ blend_exact_bwd_kernel(const float* __restrict__ attrs,
                           g_out + static_cast<size_t>(t) * kOut * kPix, pix,
                           bg, px, py);
 
+  const float* shp = sh;
+  const auto load = [shp](int j) { return load_slot(shp, j); };
   for (int v = v_last; v >= v_first; --v) {
     const int count = min(vcounts[v], K);
     const int k_win = (v - v_first) * K;     // slot-list index of slot 0
     const float* a = attrs + static_cast<size_t>(v) * K * kCh;
     float* d = d_attrs + static_cast<size_t>(v) * K * kCh;
     for (int i = count * kCh + pix; i < K * kCh; i += kPix) d[i] = 0.f;
-    for (int base = (count - 1) / kChunk4 * kChunk4;
-         base >= 0 && count > 0; base -= kChunk4) {
-      const int n = min(kChunk4, count - base);
+    for (int base = (count - 1) / kBwdChunk * kBwdChunk;
+         base >= 0 && count > 0; base -= kBwdChunk) {
+      const int n = min(kBwdChunk, count - base);
       // Also the barrier after the previous chunk's reads of sh and part.
       if (__syncthreads_count(st.nc > k_win + base) == 0) {
         for (int i = pix; i < n * kCh; i += kPix) d[base * kCh + i] = 0.f;
@@ -231,14 +97,11 @@ blend_exact_bwd_kernel(const float* __restrict__ attrs,
       }
       for (int i = pix; i < n * kCh; i += kPix) sh[i] = a[base * kCh + i];
       __syncthreads();
-      walk_chunk(sh, n, k_win + base, st, part);
+      walk_chunk(load, n, k_win + base, st, part);
       __syncthreads();
       for (int i = pix; i < n * kCh; i += kPix) {
-        const int j = i / kCh, c = i - j * kCh;
-        float s = 0.f;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) s += part[w][j][c];
-        d[base * kCh + i] = s;
+        const int j = i / kCh;
+        d[base * kCh + i] = part_sum(part, j, i - j * kCh);
       }
     }
   }

@@ -1,4 +1,4 @@
-// D1-D3: K3's window mechanics with the blend math replaced (kernel-floor
+// D1-D3: K3's own kernels with the blend math replaced (kernel-floor
 // probes).
 //
 // Replaces tools/kernel_floor_tpu.py _make_stub_kernel (D1 channel-major
@@ -6,35 +6,47 @@
 // batch) and _make_stub_kernel_t (D2, pair-major input, levels 2, 0, -1).
 // Those TPU stubs keep the exact forward kernel's per-window mechanics and
 // swap its blend math for less and less work, so their times split the
-// kernel's time into window mechanics, loads and math.  Here the stubs keep
-// THIS port's K3 mechanics (blend_exact.cu): one block of 256 threads, one
-// pixel each, per real tile; the loop over the tile's windows
-// v = last_v[t] - wt[last_v[t]] .. last_v[t]; each window's slots staged in
-// shared memory in kChunk-slot rounds between barriers; the per-slot loop;
-// the __syncthreads_count barrier after each round (it never fires: a stub
-// does not terminate); the direct [T, 8, 256] write.  Only blend_slot is
-// replaced by the level's body.  Per window, with B_v = ceil(min(c_v, K) /
-// 128) live 128-slot blocks (the TPU's lane blocks), each pixel adds
+// kernel's time into window mechanics, loads and math.  Here each stub is a
+// Body of K3's kernels (blend_exact.cuh), so the probes launch what K3
+// launches: the same plan kernel and block tables, the same tile order, the
+// same split of tiles of more than ``group`` windows (pass 1, phase A,
+// pass 2, the combine), the same cp.async double-buffered staging with the
+// per-slot threshold computed when a chunk lands.  Only the Body differs:
+// what a block does with each staged chunk, the rows it writes and what
+// the combine sums.  Per window, with B_v = ceil(min(c_v, K) / 128) live
+// 128-slot blocks (the TPU's lane blocks), each pixel adds
 //
 //   L2   sum over the slots of the live blocks of sum_c px * a[slot][c]
 //        (ten products a slot-pixel);
 //   L1   px * (sum_c a[slot][c]) per slot: the channel sum is taken once a
-//        slot while staging, then one product a slot-pixel;
-//   L0   px per slot of the live blocks (no attrs read);
+//        slot (a thread a slot, then a barrier), then one product a
+//        slot-pixel;
+//   L0   px per slot of the live blocks (the staged attrs are not read);
 //   L-1  B_v (no pixel coordinates, no per-slot loop);
 //   L-2  K / 128, on every window, empty ones included.
 //
-// and the tile's last window writes acc + bg[0] to all eight output rows.
-// Layout (the D1 / D2 question): channel-major attrs [T_v, 10, K] are staged
-// as ten strided runs, pair-major [T_v, K, 10] as one coalesced run (as K3).
-// ``tiles_per_block`` (D3): one block walks that many consecutive real tiles
-// in turn, trading per-block scheduling cost against tail imbalance.
+// Every level stages the slots it walks (the live blocks, or K at L-2).  A
+// stub never terminates: a tile walked whole writes acc + bg[0] to all
+// eight output rows; a group writes its own sum to its partial rows 0-6
+// (and the sum of its tile's earlier drops, which pass 2 reads as K3 does,
+// to row 7), group 0 and phase A write their sums as drops, and the
+// combine sums each split tile's group partials in group order and writes
+// that + bg[0] to all eight rows.
+// Layout (the D1 / D2 question): D2 stages pair-major [T_v, K, 10] attrs
+// (K3's stage_pair_major), D1 channel-major [T_v, 10, K] (K1's
+// stage_channel_major: one coalesced run per channel).
+// ``tiles_per_block`` (D3): one block of pass 1 walks that many
+// consecutive rows of the block table in turn (stub_rows_kernel; a row is
+// a tile walked whole or one group of a split tile), trading per-block
+// scheduling cost against tail imbalance.  K3's own pass kernel walks one
+// row a block.
 //
 // Bound on the card: L2 and L1 read the live blocks' attrs once (bytes) and
-// do 10 or 1 products a slot-pixel (operations); L0 and below move only the
-// output and the window metadata.
+// do 10 or 1 products a slot-pixel (operations) over the split's walk
+// (phase A walks the middle groups a second time); L0 one addition a
+// slot-pixel; below that only the output and the window metadata.
 
-#include "blend_common.cuh"
+#include "blend_exact.cuh"
 
 using namespace blend;
 
@@ -42,139 +54,175 @@ namespace {
 
 constexpr int kBlock = 128;   // the TPU stubs' lane block (KB)
 
-template <int kLevel, bool kPairMajor>
-__global__ void __launch_bounds__(kPix)
-blend_exact_stub_kernel(const float* __restrict__ attrs,
-                        const int* __restrict__ vcounts,
-                        const int* __restrict__ wt,
-                        const int* __restrict__ last_v,
-                        const float* __restrict__ bg, int T, int K,
-                        int tiles_x, int tiles_per_block,
-                        float* __restrict__ out) {
-  __shared__ float sh[kChunk * kCh];
-  __shared__ float tot[kChunk];
-  const int pix = threadIdx.x;
-  const int t_end = min(T, (blockIdx.x + 1) * tiles_per_block);
-  for (int t = blockIdx.x * tiles_per_block; t < t_end; ++t) {
-    float px = 0.f;
-    if (kLevel >= 0) {
-      px = static_cast<float>((t % tiles_x) * kTile)
-           + static_cast<float>(pix % kTile);
-    }
-    const int v_last = last_v[t];
-    const int v_first = v_last - wt[v_last];
-    const bool alive = true;
-    bool done = false;
-    float acc = 0.f;
-    for (int v = v_first; v <= v_last && !done; ++v) {
-      const int count = min(vcounts[v], K);
-      const int n_slots =
-          kLevel <= -2 ? K : (count + kBlock - 1) / kBlock * kBlock;
-      const float* a = attrs + static_cast<size_t>(v) * K * kCh;
-      for (int base = 0; base < n_slots; base += kChunk) {
-        const int n = min(kChunk, n_slots - base);
-        float s = 0.f;
-        if (kLevel >= 1) {
-          for (int i = pix; i < n * kCh; i += kPix) {
-            if (kPairMajor) {
-              sh[i] = a[base * kCh + i];
-            } else {
-              const int c = i / n, j = i - c * n;
-              sh[j * kCh + c] = a[c * K + base + j];
-            }
-          }
-          __syncthreads();
-          if (kLevel == 2) {
-            // Each slot's ten products summed first, then the slots: the
-            // sum's rounding error stays that of L1's (per-slot sums).
-            for (int j = 0; j < n; ++j) {
-              const float* q = sh + j * kCh;
-              float part = px * q[0];
+template <int kLevel, bool kPM>
+struct Stub {
+  static constexpr bool kPairMajor = kPM;
+  __device__ __forceinline__ static int window_slots(int vcount, int K) {
+    return kLevel <= -2 ? K : (min(vcount, K) + kBlock - 1) / kBlock * kBlock;
+  }
+
+  float px, acc = 0.f, entry = 0.f;
+  __device__ __forceinline__ Stub(float x, float)
+      : px(kLevel >= 0 ? x : 0.f) {}
+  __device__ __forceinline__ bool walk(const float* b, int n) {
+    float s = 0.f;
+    if constexpr (kLevel == 2) {
+      // Each slot's ten products summed first, then the slots: the sum's
+      // rounding error stays that of L1's (per-slot sums).
+      for (int j = 0; j < n; ++j) {
+        const StagedSlot q = load_staged(b, j);
+        float part = px * q(0);
 #pragma unroll
-              for (int c = 1; c < kCh; ++c) part += px * q[c];
-              s += part;
-            }
-          } else {
-            if (pix < n) {
-              float sum = sh[pix * kCh];
-#pragma unroll
-              for (int c = 1; c < kCh; ++c) sum += sh[pix * kCh + c];
-              tot[pix] = sum;
-            }
-            __syncthreads();
-            for (int j = 0; j < n; ++j) s += px * tot[j];
-          }
-        } else if (kLevel == 0) {
-          for (int j = 0; j < n; ++j) s += px;
-        } else {
-          s = static_cast<float>(n / kBlock);
-        }
-        acc += s;
-        if (__syncthreads_count(alive) == 0) {
-          done = true;
-          break;
-        }
+        for (int c = 1; c < kCh; ++c) part += px * q(c);
+        s += part;
       }
+    } else if constexpr (kLevel == 1) {
+      // Each slot's channel sum once, by one thread; every thread of the
+      // block walks each chunk, and the barriers of walk_chunks order the
+      // next chunk's sums after this chunk's reads.
+      __shared__ float sums[kChunk];
+      if (static_cast<int>(threadIdx.x) < n) {
+        const StagedSlot q = load_staged(b, threadIdx.x);
+        float sum = q(0);
+#pragma unroll
+        for (int c = 1; c < kCh; ++c) sum += q(c);
+        sums[threadIdx.x] = sum;
+      }
+      __syncthreads();
+      for (int j = 0; j < n; ++j) s += px * sums[j];
+    } else if constexpr (kLevel == 0) {
+      for (int j = 0; j < n; ++j) s += px;
+    } else {
+      s = static_cast<float>(n / kBlock);
     }
-    float* o = out + static_cast<size_t>(t) * kOut * kPix;
+    acc += s;
+    return true;
+  }
+  __device__ __forceinline__ void enter(float s) { entry = s; }
+  __device__ __forceinline__ float end_drop() const { return acc; }
+  __device__ __forceinline__ void write_out(float* o, int pix,
+                                            const float* bg) const {
 #pragma unroll
     for (int r = 0; r < kOut; ++r) o[r * kPix + pix] = acc + bg[0];
   }
+  __device__ __forceinline__ void write_part(float* p, int pix) const {
+#pragma unroll
+    for (int r = 0; r < kOut - 1; ++r) p[r * kPix + pix] = acc;
+    p[(kOut - 1) * kPix + pix] = entry;
+  }
+  // Phase A walks the group with the level's body; its sum is the drop.
+  struct Drop {
+    Stub st;
+    __device__ __forceinline__ Drop(float x, float y) : st(x, y) {}
+    __device__ __forceinline__ bool walk(const float* b, int n) {
+      return st.walk(b, n);
+    }
+    __device__ __forceinline__ float value() const { return st.acc; }
+  };
+  __device__ __forceinline__ static void combine(const float* part, int q0,
+                                                 int ng, int pix,
+                                                 float* rows,
+                                                 const float* bg) {
+    float total = 0.f;
+    for (int h = 0; h < ng; ++h) {
+      total += part[static_cast<size_t>(q0 + h) * kOut * kPix + pix];
+    }
+#pragma unroll
+    for (int r = 0; r < kOut; ++r) rows[r * kPix + pix] = total + bg[0];
+  }
+};
+
+struct Args {
+  const float* attrs;
+  const int *vcounts, *wt, *last_v;
+  const float* bg;
+  int T, K, tiles_x, group, tiles_per_block;
+  int *table, n_table, *pass2, *combine, n_extra;
+  float *drop, *part, *out;
+  cudaStream_t stream;
+};
+
+// Pass 1 with rows [b * rows_per_block, (b + 1) * rows_per_block) of the
+// ``n_rows`` of ``table`` for block b, in turn (D3).
+template <typename Body>
+__global__ void __launch_bounds__(kPix)
+stub_rows_kernel(const float* __restrict__ attrs,
+                 const int* __restrict__ vcounts, const int* __restrict__ wt,
+                 const int* __restrict__ last_v,
+                 const int4* __restrict__ table, int n_rows,
+                 int rows_per_block, float* __restrict__ drop,
+                 const float* __restrict__ bg, int K, int group, int tiles_x,
+                 float* __restrict__ part, float* __restrict__ out) {
+  __shared__ __align__(16) FwdBuf buf;
+  const int r0 = blockIdx.x * rows_per_block;
+  const int r1 = min(n_rows, r0 + rows_per_block);
+  for (int r = r0; r < r1; ++r) {
+    exact_pass_row<Body, 1>(buf, table[r], attrs, vcounts, wt, last_v, drop,
+                            bg, K, group, tiles_x, 0, part, out);
+  }
+}
+
+template <typename Body>
+int launch_body(const Args& a) {
+  if (a.tiles_per_block == 1) {
+    return exact_launch<Body>(a.attrs, a.vcounts, a.wt, a.last_v, nullptr,
+                              a.T, a.bg, a.K, a.group, a.tiles_x, 0,
+                              a.table, a.n_table, a.pass2, a.combine,
+                              a.n_extra, a.drop, a.part, a.out, a.stream);
+  }
+  // K3's launches with stub_rows_kernel as pass 1.
+  int4* tab = reinterpret_cast<int4*>(a.table);
+  int4* tab2 = reinterpret_cast<int4*>(a.pass2);
+  if (a.T > 0) {
+    exact_plan_kernel<<<1, kPlan, 0, a.stream>>>(
+        nullptr, a.wt, a.last_v, a.T, a.group, a.n_table, a.n_extra, tab,
+        tab2, a.combine);
+    const int blocks = (a.n_table + a.tiles_per_block - 1)
+                       / a.tiles_per_block;
+    stub_rows_kernel<Body><<<blocks, kPix, 0, a.stream>>>(
+        a.attrs, a.vcounts, a.wt, a.last_v, tab, a.n_table,
+        a.tiles_per_block, a.drop, a.bg, a.K, a.group, a.tiles_x, a.part,
+        a.out);
+    if (a.n_extra > 0) {
+      exact_split_tail<Body>(a.attrs, a.vcounts, a.wt, a.last_v, a.bg, a.K,
+                             a.group, a.tiles_x, 0, tab2, a.combine,
+                             a.n_extra, a.drop, a.part, a.out, a.stream);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int kLevel>
-void launch_level(bool pair_major, int blocks, cudaStream_t stream,
-                  const float* attrs, const int* vcounts, const int* wt,
-                  const int* last_v, const float* bg, int T, int K,
-                  int tiles_x, int tiles_per_block, float* out) {
-  if (pair_major) {
-    blend_exact_stub_kernel<kLevel, true><<<blocks, kPix, 0, stream>>>(
-        attrs, vcounts, wt, last_v, bg, T, K, tiles_x, tiles_per_block, out);
-  } else {
-    blend_exact_stub_kernel<kLevel, false><<<blocks, kPix, 0, stream>>>(
-        attrs, vcounts, wt, last_v, bg, T, K, tiles_x, tiles_per_block, out);
-  }
+int launch_level(bool pair_major, const Args& a) {
+  return pair_major ? launch_body<Stub<kLevel, true>>(a)
+                    : launch_body<Stub<kLevel, false>>(a);
 }
 
 }  // namespace
 
-// Returns cudaErrorInvalidValue for a level outside -2..2 or a
-// tiles_per_block below 1.
-extern "C" int blend_exact_stub_launch(const float* attrs, const int* vcounts,
-                                       const int* wt, const int* last_v,
-                                       const float* bg, int T, int K,
-                                       int tiles_x, int level, int pair_major,
-                                       int tiles_per_block, float* out,
-                                       void* stream) {
+// The stub of ``level`` over the T real tiles in tile order, windows split
+// in groups of ``group`` (0: no split).  ``table`` [n_table], ``pass2`` and
+// ``combine`` [n_extra] rows, filled by the plan; ``drop`` and ``part``
+// the split's scratch, sized as for K3.  Returns cudaErrorInvalidValue for
+// a level outside -2..2 or a tiles_per_block below 1.
+extern "C" int blend_exact_stub_launch(
+    const float* attrs, const int* vcounts, const int* wt, const int* last_v,
+    const float* bg, int T, int K, int tiles_x, int level, int pair_major,
+    int tiles_per_block, int group, int* table, int n_table, int* pass2,
+    int* combine, int n_extra, float* drop, float* part, float* out,
+    void* stream) {
   if (tiles_per_block < 1 || level < -2 || level > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (T > 0) {
-    const int blocks = (T + tiles_per_block - 1) / tiles_per_block;
-    const auto s = static_cast<cudaStream_t>(stream);
-    const bool pm = pair_major != 0;
-    switch (level) {
-      case 2:
-        launch_level<2>(pm, blocks, s, attrs, vcounts, wt, last_v, bg, T, K,
-                        tiles_x, tiles_per_block, out);
-        break;
-      case 1:
-        launch_level<1>(pm, blocks, s, attrs, vcounts, wt, last_v, bg, T, K,
-                        tiles_x, tiles_per_block, out);
-        break;
-      case 0:
-        launch_level<0>(pm, blocks, s, attrs, vcounts, wt, last_v, bg, T, K,
-                        tiles_x, tiles_per_block, out);
-        break;
-      case -1:
-        launch_level<-1>(pm, blocks, s, attrs, vcounts, wt, last_v, bg, T, K,
-                         tiles_x, tiles_per_block, out);
-        break;
-      default:
-        launch_level<-2>(pm, blocks, s, attrs, vcounts, wt, last_v, bg, T, K,
-                         tiles_x, tiles_per_block, out);
-        break;
-    }
+  const Args a{attrs, vcounts, wt, last_v, bg, T, K, tiles_x, group,
+               tiles_per_block, table, n_table, pass2, combine, n_extra,
+               drop, part, out, static_cast<cudaStream_t>(stream)};
+  const bool pm = pair_major != 0;
+  switch (level) {
+    case 2: return launch_level<2>(pm, a);
+    case 1: return launch_level<1>(pm, a);
+    case 0: return launch_level<0>(pm, a);
+    case -1: return launch_level<-1>(pm, a);
+    default: return launch_level<-2>(pm, a);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -91,13 +91,15 @@ __device__ __forceinline__ StagedSlot load_staged(const float* buf, int j) {
   return s;
 }
 
-// Drives a source of chunks through the two buffers.  ``src`` has
-// ``bool settle()`` (move to the next non-empty chunk; false when none is
-// left), ``int n()``, ``void step()`` and ``void stage(float* buf)``;
-// ``walk(buf, n)`` walks one staged chunk and returns whether this thread
-// still wants slots.  All threads of the block call it alike.
-template <typename Source, typename Walk>
-__device__ __forceinline__ void walk_chunks(FwdBuf& buf, Source src,
+// Drives a source of chunks through the two buffers (each kN floats: kN /
+// kStride slots).  ``src`` has ``bool settle()`` (move to the next
+// non-empty chunk; false when none is left), ``int n()``, ``void step()``
+// and ``void stage(float* buf)``; ``walk(buf, n)`` walks one staged chunk
+// and returns whether this thread still wants slots.  All threads of the
+// block call it alike.  When a chunk lands, each slot gets its skip
+// threshold.
+template <int kN, typename Source, typename Walk>
+__device__ __forceinline__ void walk_chunks(float (&buf)[2][kN], Source src,
                                             Walk walk) {
   if (!src.settle()) return;
   src.stage(buf[0]);

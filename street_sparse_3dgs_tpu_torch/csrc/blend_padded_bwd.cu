@@ -5,29 +5,66 @@
 // per 16x16 tile, one pixel per thread, the K1 layout: attrs channel-major
 // [T, 10, K], per-tile bg optional, tile ids ``g + tile0`` wrapped by
 // ``t_mod``.  Each thread reads its saved final log T, its n_contrib and its
-// five cotangent rows, and walks the tile's slots in reverse
-// (blend_common.cuh, blend_slot_bwd).  The TPU kernel's triangular-matmul
-// suffix sums and bf16 hi/lo splits are MXU devices and are not carried
-// over: here the suffix is a running register sum.
+// five cotangent rows, and walks the tile's slots in reverse.  The TPU
+// kernel's triangular-matmul suffix sums and bf16 hi/lo splits are MXU
+// devices and are not carried over: here the suffix is a running register
+// sum.
 //
 // Output: per-slot grads [T, 10, K] of (mx, my, ca, cb, cc, r, g, b,
-// opacity, invdepth), every slot written (zeros past the count and for
-// slots no pixel reached).  Each slot's ten channels are summed over the
-// 256 pixels in a fixed order (warp shuffles, then the eight warp partials
-// in shared memory), with no atomics, so a rerun is bit-identical.  Slots
-// are staged and reduced in chunks of 32: two barriers per chunk, not per
-// slot.  Chunks above every pixel's n_contrib are found with
-// __syncthreads_count and only zeroed.
+// opacity, invdepth), every slot written: zeros past the count and in the
+// chunks above every pixel's n_contrib (found with __syncthreads_count and
+// only zeroed).  Each slot's ten channels are summed over the 256 pixels in
+// a fixed order, with no atomics, so a rerun is bit-identical.
 //
-// Bound on the card: as K1, the special-function units (exp(power),
-// log1p(-alpha), exp(tlog_before) per walked slot-pixel step); bytes are
-// attrs and the saved and cotangent rows read once, the grads written once.
-// The ten warp reductions per slot (50 shuffles) are this first version's
-// main overhead beyond that bound.
+// Bound on the card: the work the data needs is, per walked slot-pixel
+// step (a slot below the pixel's n_contrib), the power (11 f32
+// operations), and per step that passes the alpha test three
+// special-function results (expf(power), log1pf(-alpha), exp(log T
+// before)) and 50 f32 operations; bytes are the live attrs, the saved and
+// cotangent rows read once and the grads written once (chip_smoke.py
+// takes the largest of the three per call).  The design, K4's walk on K1's
+// staging:
+// - the walk of blend_bwd.cuh, shared with K4 (a vote before each slot, one
+//   reduce-scatter of the ten partials: 12 shuffles where ten butterflies
+//   take 50; two slots a round as one straight run; 64 slots staged and
+//   reduced a round);
+// - the chunks staged from the top down with blend_fwd.cuh's cp.async
+//   double buffer and stage_channel_major (one coalesced run per channel,
+//   transposed into the 12-float pair-major shared layout, only live slots
+//   copied): the next chunk's copy is in flight while one is walked;
+// - no skip ahead of expf (blend_bwd.cuh says why); the staging still
+//   computes the forward's per-slot threshold when a chunk lands, which
+//   the walk does not read;
+// - each chunk's grads summed over the warps from shared memory and stored
+//   channel by channel, each channel's run one coalesced store.
+// A 64x64 image is 16 tiles, so there the launch is one tile's serial walk:
+// the shorter chain per slot is what helps.  Tiles are not split over
+// blocks (a split needs each group's carry: the drop in log T and the
+// suffix sum at its end).
 
-#include "blend_common.cuh"
+#include "blend_bwd.cuh"
+#include "blend_fwd.cuh"
 
 using namespace blend;
+
+namespace {
+
+using BwdBuf = float[2][kBwdChunk * kStride];
+
+// The kBwdChunk-aligned chunks of one tile's slots [0, count) of the
+// channel-major attrs, from the one at ``base`` down to slot 0.
+struct ReverseSlots {
+  const float* a;
+  int K, count, base;
+  __device__ __forceinline__ bool settle() const { return base >= 0; }
+  __device__ __forceinline__ int n() const {
+    return min(kBwdChunk, count - base);
+  }
+  __device__ __forceinline__ void step() { base -= kBwdChunk; }
+  __device__ __forceinline__ void stage(float* buf) const {
+    stage_channel_major(buf, a + base, K, n());
+  }
+};
 
 __global__ void __launch_bounds__(kPix)
 blend_padded_bwd_kernel(const float* __restrict__ attrs,
@@ -37,8 +74,8 @@ blend_padded_bwd_kernel(const float* __restrict__ attrs,
                         const float* __restrict__ saved,
                         const float* __restrict__ g_out,
                         float* __restrict__ d_attrs) {
-  __shared__ float sh[kCh * kBwdChunk];
-  __shared__ float part[kWarps][kBwdChunk][kCh];
+  __shared__ __align__(16) BwdBuf buf;
+  __shared__ BwdPart part;
   const int g = blockIdx.x;
   const int pix = threadIdx.x;
   int t = g + tile0;
@@ -59,33 +96,34 @@ blend_padded_bwd_kernel(const float* __restrict__ attrs,
   for (int i = pix; i < kCh * rest; i += kPix) {
     d[(i / rest) * K + count + i % rest] = 0.f;
   }
-  const float* shp = sh;
-  const auto slot_at = [shp](int j) {
-    return [shp, j](int c) { return shp[c * kBwdChunk + j]; };
-  };
-  for (int base = (count - 1) / kBwdChunk * kBwdChunk; base >= 0 && count > 0;
+  // Chunks above every pixel's n_contrib: zeros.
+  int base = count > 0 ? (count - 1) / kBwdChunk * kBwdChunk : -1;
+  for (; base >= 0 && __syncthreads_count(st.nc > base) == 0;
        base -= kBwdChunk) {
     const int n = min(kBwdChunk, count - base);
-    // Also the barrier after the previous chunk's reads of sh and part.
-    if (__syncthreads_count(st.nc > base) == 0) {
-      for (int i = pix; i < kCh * n; i += kPix) {
-        d[(i / n) * K + base + i % n] = 0.f;
-      }
-      continue;
-    }
     for (int i = pix; i < kCh * n; i += kPix) {
-      const int c = i / n, j = i - c * n;
-      sh[c * kBwdChunk + j] = a[c * K + base + j];
-    }
-    __syncthreads();
-    walk_chunk_bwd(slot_at, n, base, st, part);
-    __syncthreads();
-    for (int i = pix; i < kCh * n; i += kPix) {
-      const int c = i / n, j = i - c * n;
-      d[c * K + base + j] = block_sum(part, j, c);
+      d[(i / n) * K + base + i % n] = 0.f;
     }
   }
+  // The rest, chunk by chunk down to slot 0.  The barrier that ends each
+  // round in walk_chunks also orders this chunk's reads of ``part`` before
+  // the next chunk's writes.
+  int k0 = base;
+  walk_chunks(buf, ReverseSlots{a, K, count, base},
+              [&](const float* b, int n) {
+                walk_chunk([b](int j) { return load_staged(b, j); }, n,
+                                 k0, st, part);
+                __syncthreads();
+                for (int i = pix; i < kCh * n; i += kPix) {
+                  const int c = i / n, j = i - c * n;
+                  d[c * K + k0 + j] = part_sum(part, j, c);
+                }
+                k0 -= kBwdChunk;
+                return true;
+              });
 }
+
+}  // namespace
 
 extern "C" int blend_padded_bwd_launch(const float* attrs, const int* counts,
                                        const float* bg, int bg_per_tile,

@@ -57,8 +57,10 @@ _ARGTYPES = {
     "blend_exact_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                         _P],
     # attrs, vcounts, wt, last_v, bg, T, K, tiles_x, level, pair_major,
-    # tiles_per_block, out, stream
-    "blend_exact_stub": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    # tiles_per_block, group, table, len(table), pass2, combine,
+    # len(pass2) = len(combine), drop, part, out, stream
+    "blend_exact_stub": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                         _I, _P, _P, _I, _P, _P, _P, _P],
 }
 _fns: dict = {}
 

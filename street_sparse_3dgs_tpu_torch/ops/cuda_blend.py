@@ -17,7 +17,10 @@ slots, and ``blend_tiles_pallas`` blends them with
   (``exact_tile_order``).
 
 K1 and K3 share one forward walk (``csrc/blend_fwd.cuh``), whose per-slot
-skip threshold ``alpha_skip_threshold`` mirrors.
+skip threshold ``alpha_skip_threshold`` mirrors; K2 and K4 share one
+backward walk (``csrc/blend_bwd.cuh``).  K3's kernels
+(``csrc/blend_exact.cuh``) also run the kernel-floor stubs
+(``tools/kernel_floor.py``), on buffers from ``exact_scratch``.
 
 The forwards return the packed [T, 8, 256] rows R, G, B, invdepth, alpha,
 log T, n_contrib, pad; the backwards take those saved rows and the
@@ -44,6 +47,7 @@ inputs.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -479,7 +483,7 @@ def _blend_slots_bwd_plain(attrs: torch.Tensor, counts: torch.Tensor,
                            tiles: torch.Tensor, tiles_x: int,
                            bg: torch.Tensor, saved: torch.Tensor,
                            g_out: torch.Tensor) -> torch.Tensor:
-    """Plain backward of C tiles (the formulas of K2/K4, blend_common.cuh):
+    """Plain backward of C tiles (the formulas of K2/K4, blend_bwd.cuh):
     attrs [C, 10, L] with ``counts`` [C] live slots, bg [C, 3], the saved
     forward rows and their cotangent [C, 8, 256].  Slot k of a pixel counts
     when k < its saved n_contrib; the log transmittance before slot k is
@@ -695,24 +699,51 @@ def blend_exact_launch(attrs: torch.Tensor, vcounts: torch.Tensor,
     Allocates the block tables (which the kernel fills), the scratch for
     the split's drops and partial rows, and the [T, 8, 256] output (rows
     of tiles left out of ``order`` not written), which it returns."""
-    dev = attrs.device
     t = last_v.shape[0]
     n = t if order is None else order.shape[0]
-    n_table, n_extra, slots = _split_sizes(n, vcounts.shape[0], t, group)
-    table = torch.empty((n_table, 4), dtype=torch.int32, device=dev)
-    pass2 = torch.empty((n_extra, 4), dtype=torch.int32, device=dev)
-    combine = torch.empty((n_extra, 3), dtype=torch.int32, device=dev)
-    drop = torch.empty((slots, P), dtype=torch.float32, device=dev)
-    part = torch.empty((slots, N_OUT, P), dtype=torch.float32, device=dev)
-    out = torch.empty((t, N_OUT, P), dtype=torch.float32, device=dev)
+    sc = exact_scratch(n, vcounts.shape[0], t, group, attrs.device)
     native.launch("blend_exact", attrs.data_ptr(), vcounts.data_ptr(),
                   wt.data_ptr(), last_v.data_ptr(),
                   None if order is None else order.data_ptr(), n,
                   bg.data_ptr(), attrs.shape[1], group, tiles_x, t_mod,
-                  table.data_ptr(), n_table, pass2.data_ptr(),
-                  combine.data_ptr(), n_extra, drop.data_ptr(),
-                  part.data_ptr(), out.data_ptr())
-    return out
+                  *sc.pointers(), sc.out.data_ptr())
+    return sc.out
+
+
+class ExactScratch(NamedTuple):
+    """What a launch of K3's kernels (``csrc/blend_exact.cuh``) writes
+    besides its input: the block tables, which its plan kernel fills, the
+    split's drops and partial rows, and the [T, 8, 256] output."""
+    table: torch.Tensor       # [n_table, 4] int32
+    pass2: torch.Tensor       # [n_extra, 4] int32
+    combine: torch.Tensor     # [n_extra, 3] int32
+    drop: torch.Tensor        # [slots, 256] f32
+    part: torch.Tensor        # [slots, 8, 256] f32
+    out: torch.Tensor         # [T, 8, 256] f32
+
+    def pointers(self) -> tuple:
+        """The C arguments table, n_table, pass2, combine, n_extra, drop,
+        part."""
+        return (self.table.data_ptr(), self.table.shape[0],
+                self.pass2.data_ptr(), self.combine.data_ptr(),
+                self.pass2.shape[0], self.drop.data_ptr(),
+                self.part.data_ptr())
+
+
+def exact_scratch(n: int, nv: int, t: int, group: int,
+                  dev: torch.device) -> ExactScratch:
+    """Uninitialised buffers of a launch of K3's kernels over ``n`` of the
+    ``t`` real tiles of ``nv`` windows, sized from the shapes alone
+    (``_split_sizes``)."""
+    n_table, n_extra, slots = _split_sizes(n, nv, t, group)
+    f32, i32 = torch.float32, torch.int32
+    return ExactScratch(
+        torch.empty((n_table, 4), dtype=i32, device=dev),
+        torch.empty((n_extra, 4), dtype=i32, device=dev),
+        torch.empty((n_extra, 3), dtype=i32, device=dev),
+        torch.empty((slots, P), dtype=f32, device=dev),
+        torch.empty((slots, N_OUT, P), dtype=f32, device=dev),
+        torch.empty((t, N_OUT, P), dtype=f32, device=dev))
 
 
 class _BlendPadded(torch.autograd.Function):

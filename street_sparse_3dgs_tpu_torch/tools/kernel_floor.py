@@ -3,20 +3,31 @@
 The counterpart of ``tools/kernel_floor_tpu.py``.  At the street production
 config (one camera at 1920x1088 of the 1M-row street scene, exact binning
 with K = 128, 9,216 budget windows, the street tails, overscan 32), it times
-the real K3 against stubs that keep K3's window mechanics and swap its
-blend math for less and less work (``csrc/blend_exact_stub.cu``):
+the real K3 against stubs that run K3's own kernels (plan, tables, tile
+order, the window split at ``EXACT_GROUP``, cp.async staging, the per-slot
+threshold) with its blend math swapped for less and less work
+(``csrc/blend_exact_stub.cu``):
 
-- D1: channel-major attrs [T_v, 10, K], levels 2, 1, 0, -1, -2;
-- D2: pair-major attrs [T_v, K, 10] (K3's layout), levels 2, 0, -1;
-- D3: level 0 with one block walking 1, 2, 4 or 8 real tiles.
+- D1: channel-major attrs [T_v, 10, K] (staged as K1 stages), levels 2, 1,
+  0, -1, -2;
+- D2: pair-major attrs [T_v, K, 10] (K3's layout and staging), levels 2, 0,
+  -1;
+- D3: D1's level 0 with one pass-1 block walking 1, 2, 4 or 8 rows of the
+  block table (a row is a tile walked whole or one group of a split tile);
+- D1 and D2 at level 2 once more without the split (as K3's
+  ``no_split_ms``).
 
 Per pixel each tile's stub output is, summed over its windows (B_v live
 128-slot blocks of window v): L2 and L1 px * (the sum of every channel of
 every slot of the live blocks), L0 128 * B_v * px, L-1 B_v, L-2 K / 128;
-plus bg[0], in all eight rows.  The split it prints: the mechanics floor
-(L0) as a share of the real kernel, what the loads add (L1 - L0), the cost
-of one operation per slot-pixel ((L2 - L1) / 9) and the math share (real -
-L2), from D1 as the TPU tool took it.
+plus bg[0], in all eight rows.  The split it prints names the probe and
+layout each field reads: the mechanics floor (D2 L0, K3's staging) as a
+share of the real kernel, what the loads add (D1 L1 - L0), the cost of one
+operation per slot-pixel (D1 (L2 - L1) / 9), the same floor from D1, what
+K1's staging costs against K3's (D1 L2 - D2 L2), and K3 and D1, D2 L2 at
+no split.  It gives no math share (real - L2): L2 does ten operations on
+every walked slot-pixel, where K3 skips most steps after the power, so L2
+is no lower bound of K3's walk.
 
 Run on the card from the repository root (one JSON line per measurement,
 each with the card's name and power limit)::
@@ -35,9 +46,11 @@ from .. import native
 from ..data.toy import make_street_scene
 from ..device import resolve_device
 from ..ops.binning import bin_gaussians
-from ..ops.cuda_blend import N_CH, N_OUT, P, blend_exact, pack_gather_attrs
+from ..ops.cuda_blend import (EXACT_GROUP, N_CH, N_OUT, P, blend_exact,
+                              blend_exact_launch, exact_scratch,
+                              exact_split_plan, pack_gather_attrs)
 from ..ops.preprocess import project_gaussians
-from ..profiling import PEAK_BYTES_S, PEAK_FLOP_S, event_ms, smi
+from ..profiling import PEAK_BYTES_S, PEAK_FLOP_S, device_ms, event_ms, smi
 
 H, W = 1088, 1920
 KCAP = 128
@@ -83,51 +96,116 @@ def window_blocks(vcounts: torch.Tensor, k: int, level: int) -> torch.Tensor:
     return torch.div(live + BLOCK - 1, BLOCK, rounding_mode="floor")
 
 
+def _window_sums(attrs: torch.Tensor, vcounts: torch.Tensor, level: int,
+                 pair_major: bool):
+    """(blocks [T_v] int64, win, win_abs [T_v] float64): the 128-slot
+    blocks each window walks at ``level`` and, at levels 2 and 1, the sum
+    of every channel of the slots of those blocks and of their |values|
+    (None below)."""
+    k = attrs.shape[1] if pair_major else attrs.shape[2]
+    blocks = window_blocks(vcounts, k, level)
+    if level < 1:
+        return blocks, None, None
+    a = (attrs if pair_major else attrs.transpose(1, 2)).to(torch.float64)
+    lanes = torch.arange(k, device=attrs.device)[None, :] \
+        < blocks[:, None] * BLOCK
+    win = torch.where(lanes, a.sum(-1), 0.0).sum(-1)
+    win_abs = torch.where(lanes, a.abs().sum(-1), 0.0).sum(-1)
+    return blocks, win, win_abs
+
+
+def _tile_px(tiles: torch.Tensor, tiles_x: int) -> torch.Tensor:
+    """[C, 256] float64 pixel x of each tile's pixels."""
+    return ((tiles % tiles_x) * 16).to(torch.float64)[:, None] + (
+        torch.arange(P, device=tiles.device) % 16).to(torch.float64)[None, :]
+
+
+def _run_values(sums, first: torch.Tensor, last: torch.Tensor,
+                px: torch.Tensor, level: int):
+    """Each run of windows [first, last]'s stub sum per pixel (float64 [C,
+    256]) and, at levels 2 and 1, its sum of |terms| (zeros below)."""
+    blocks, win, win_abs = sums
+    if level >= 1:
+        return (px * _per_tile(win, first, last)[:, None],
+                px.abs() * _per_tile(win_abs, first, last)[:, None])
+    if level == 0:
+        acc = px * (BLOCK * _per_tile(blocks, first, last)).to(
+            torch.float64)[:, None]
+    else:
+        acc = _per_tile(blocks, first, last).to(torch.float64)[:, None] \
+            .expand_as(px)
+    return acc, torch.zeros_like(px)
+
+
 def blend_exact_stub_plain(attrs: torch.Tensor, vcounts: torch.Tensor,
                            wt: torch.Tensor, last_v: torch.Tensor,
                            bg: torch.Tensor, tiles_x: int, level: int,
                            pair_major: bool):
     """Plain PyTorch version of the stub kernel (any ``tiles_per_block``
-    gives the same values), in closed form (segment sums over each tile's
-    windows, in float64): returns (out [T, 8, 256], terms [T, 256]),
-    ``terms`` being each pixel's sum of |px * a| at levels 2 and 1 (zeros
-    below)."""
-    k = attrs.shape[1] if pair_major else attrs.shape[2]
+    and ``group`` give the same values), in closed form (segment sums over
+    each tile's windows, in float64): returns (out [T, 8, 256], terms [T,
+    256]), ``terms`` being each pixel's sum of |px * a| at levels 2 and 1
+    (zeros below)."""
     t = last_v.shape[0]
-    dev = attrs.device
     first, last = _windows(vcounts, wt, last_v)
-    blocks = window_blocks(vcounts, k, level)
-    tiles = torch.arange(t, device=dev)
-    px = ((tiles % tiles_x) * 16).to(torch.float64)[:, None] + (
-        torch.arange(P, device=dev) % 16).to(torch.float64)[None, :]
-    terms = torch.zeros((t, P), dtype=torch.float64, device=dev)
-    if level >= 1:
-        a = (attrs if pair_major else attrs.transpose(1, 2)).to(torch.float64)
-        lanes = (torch.arange(k, device=dev)[None, :]
-                 < blocks[:, None] * BLOCK)
-        win = torch.where(lanes, a.sum(-1), 0.0).sum(-1)           # [T_v]
-        win_abs = torch.where(lanes, a.abs().sum(-1), 0.0).sum(-1)
-        acc = px * _per_tile(win, first, last)[:, None]
-        terms = px.abs() * _per_tile(win_abs, first, last)[:, None]
-    elif level == 0:
-        acc = px * (BLOCK * _per_tile(blocks, first, last)).to(
-            torch.float64)[:, None]
-    else:
-        acc = _per_tile(blocks, first, last).to(torch.float64)[:, None] \
-            .expand(t, P)
+    px = _tile_px(torch.arange(t, device=attrs.device), tiles_x)
+    acc, terms = _run_values(_window_sums(attrs, vcounts, level, pair_major),
+                             first, last, px, level)
     out = acc.to(torch.float32) + bg.reshape(-1)[0]
     return (out[:, None, :].expand(t, N_OUT, P).contiguous(),
             terms.to(torch.float32))
 
 
+def blend_exact_stub_split_plain(attrs: torch.Tensor, vcounts: torch.Tensor,
+                                 wt: torch.Tensor, last_v: torch.Tensor,
+                                 bg: torch.Tensor, tiles_x: int, level: int,
+                                 pair_major: bool,
+                                 group: int = EXACT_GROUP) -> torch.Tensor:
+    """Plain twin of the stub kernel's split (``csrc/blend_exact_stub.cu``
+    on K3's kernels), on the block tables of ``exact_split_plan``: each
+    block's sum over its windows (float64, then float32 as the block's
+    partial row); a tile walked whole writes its sum + bg[0], a split tile
+    the float32 sum of its groups' partials in group order + bg[0] (the
+    drops that pass 2 reads change no value).  Returns [T, 8, 256]."""
+    t = last_v.shape[0]
+    dev = attrs.device
+    table, _, combine, _ = exact_split_plan(vcounts, wt, last_v, group)
+    table = table[table[:, 0] >= 0].to(torch.int64)
+    tile, v0, nw, q = table.unbind(1)
+    acc, _ = _run_values(_window_sums(attrs, vcounts, level, pair_major),
+                         v0, v0 + nw - 1, _tile_px(tile, tiles_x), level)
+    rows = acc.to(torch.float32)
+    bg0 = bg.reshape(-1)[0]
+    out = torch.empty((t, P), dtype=torch.float32, device=dev)
+    whole = q < 0
+    out[tile[whole]] = rows[whole] + bg0
+    combine = combine[combine[:, 0] >= 0].to(torch.int64)
+    if combine.shape[0]:
+        part = torch.zeros((int(q.max()) + 1, P), dtype=torch.float32,
+                           device=dev)
+        part[q[~whole]] = rows[~whole]
+        t_c, q0, ng = combine.unbind(1)
+        total = torch.zeros((t_c.shape[0], P), dtype=torch.float32,
+                            device=dev)
+        for h in range(int(ng.max())):
+            take = (h < ng)[:, None]
+            total = torch.where(take, total + part[torch.clamp(
+                q0 + h, max=part.shape[0] - 1)], total)
+        out[t_c] = total + bg0
+    return out[:, None, :].expand(t, N_OUT, P).contiguous()
+
+
 def blend_exact_stub(attrs: torch.Tensor, vcounts: torch.Tensor,
                      wt: torch.Tensor, last_v: torch.Tensor, bg: torch.Tensor,
                      tiles_x: int, level: int, pair_major: bool,
-                     tiles_per_block: int = 1) -> torch.Tensor:
+                     tiles_per_block: int = 1,
+                     group: int = EXACT_GROUP) -> torch.Tensor:
     """D1-D3: attrs f32 pair-major [T_v, K, 10] or channel-major [T_v, 10,
     K], vcounts, wt [T_v] and last_v [T] int32 of an exact ``TileBins``, bg
-    [1, 3].  Returns [T, 8, 256].  Launches ``csrc/blend_exact_stub.cu`` on
-    CUDA tensors; runs ``blend_exact_stub_plain`` on CPU tensors."""
+    [1, 3]; tiles of more than ``group`` windows split as K3 splits them
+    (0: no split).  Returns [T, 8, 256].  Launches
+    ``csrc/blend_exact_stub.cu`` on CUDA tensors (with K3's scratch,
+    ``exact_scratch``); runs ``blend_exact_stub_plain`` on CPU tensors."""
     nv = vcounts.shape[0]
     want = (nv, attrs.shape[1], N_CH) if pair_major \
         else (nv, N_CH, attrs.shape[2])
@@ -144,22 +222,23 @@ def blend_exact_stub(attrs: torch.Tensor, vcounts: torch.Tensor,
                              f"1-d int32 tensor on {attrs.device}")
     k = want[1] if pair_major else want[2]
     if wt.shape[0] != nv or tuple(bg.shape) != (1, 3) or k % BLOCK or \
-            level not in (2, 1, 0, -1, -2) or tiles_per_block < 1:
+            level not in (2, 1, 0, -1, -2) or tiles_per_block < 1 or \
+            group < 0:
         raise ValueError(f"blend_exact_stub: bad arguments (K {k}, bg "
                          f"{tuple(bg.shape)}, level {level}, tiles_per_block "
-                         f"{tiles_per_block})")
+                         f"{tiles_per_block}, group {group})")
     if attrs.device.type == "cpu":
         return blend_exact_stub_plain(attrs, vcounts, wt, last_v, bg,
                                       tiles_x, level, pair_major)[0]
     if not attrs.is_cuda:
         raise RuntimeError(f"blend_exact_stub: no kernel for {attrs.device}")
     t = last_v.shape[0]
-    out = torch.empty((t, N_OUT, P), dtype=torch.float32, device=attrs.device)
+    sc = exact_scratch(t, nv, t, group, attrs.device)
     native.launch("blend_exact_stub", attrs.data_ptr(), vcounts.data_ptr(),
                   wt.data_ptr(), last_v.data_ptr(), bg.data_ptr(), t, k,
-                  tiles_x, level, int(pair_major), tiles_per_block,
-                  out.data_ptr())
-    return out
+                  tiles_x, level, int(pair_major), tiles_per_block, group,
+                  *sc.pointers(), sc.out.data_ptr())
+    return sc.out
 
 
 def stub_error(got: torch.Tensor, want: torch.Tensor, terms: torch.Tensor,
@@ -183,24 +262,35 @@ def stub_error(got: torch.Tensor, want: torch.Tensor, terms: torch.Tensor,
 
 
 def stub_bound(vcounts: torch.Tensor, wt: torch.Tensor, last_v: torch.Tensor,
-               k: int, level: int):
+               k: int, level: int, group: int = EXACT_GROUP):
     """(bound ms, bound_by, walked slots): the larger of the bytes (the
-    walked slots' attrs at levels 2 and 1, the windows' metadata and the
+    live blocks' attrs at levels 2 and 1, the windows' metadata and the
     [T, 8, 256] output, each once, at PEAK_BYTES_S) and the f32 operations
     (FLOPS_PER_STEP per walked slot-pixel, plus the channel sums of level 1;
-    one per block-pixel below level 0) at PEAK_FLOP_S."""
+    one per block-pixel below level 0) at PEAK_FLOP_S.  The walked slots
+    are those of the split's walk at ``group``: phase A walks the middle
+    groups of each split tile a second time."""
     first, last = _windows(vcounts, wt, last_v)
-    blocks = _per_tile(window_blocks(vcounts, k, level), first, last)
-    walked = int(blocks.sum()) * BLOCK
+    per_window = window_blocks(vcounts, k, level)
+    once = int(_per_tile(per_window, first, last).sum())
+    table = exact_split_plan(vcounts, wt, last_v, group)[0].to(torch.int64)
+    tile, v0, nw, q = table[table[:, 0] >= 0].unbind(1)
+    v_last = last_v.to(torch.int64)[tile]
+    g_first = v_last - wt.to(torch.int64)[v_last]
+    mid = (q >= 0) & (v0 > g_first) & (v0 + nw <= v_last)
+    again = int(_per_tile(per_window, v0[mid], v0[mid] + nw[mid] - 1).sum()) \
+        if bool(mid.any()) else 0
+    blocks = once + again
+    walked = blocks * BLOCK
     t = last_v.shape[0]
     windows = int((last - first + 1).sum())
-    bytes_ = (walked * N_CH * 4 if level >= 1 else 0) \
+    bytes_ = (once * BLOCK * N_CH * 4 if level >= 1 else 0) \
         + (2 * windows + t) * 4 + t * N_OUT * P * 4
     if level >= 0:
         flops = walked * P * FLOPS_PER_STEP[level] \
             + (walked * (N_CH - 1) if level == 1 else 0)
     else:
-        flops = int(blocks.sum()) * P
+        flops = blocks * P
     t_bytes, t_ops = bytes_ / PEAK_BYTES_S, flops / PEAK_FLOP_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", walked)
@@ -228,40 +318,86 @@ def street_inputs(device: str | torch.device = "cuda", n: int = 1_000_000):
 
 
 def variants():
-    """(probe, level, pair_major, tiles_per_block) of every stub timed."""
-    return ([("D1", lv, False, 1) for lv in LEVELS_D1]
-            + [("D2", lv, True, 1) for lv in LEVELS_D2]
-            + [("D3", 0, False, tpb) for tpb in TILES_PER_BLOCK_D3])
+    """(probe, level, pair_major, tiles_per_block, group) of every stub
+    timed; the first of each probe is its headline."""
+    g = EXACT_GROUP
+    return ([("D1", lv, False, 1, g) for lv in LEVELS_D1]
+            + [("D1", 2, False, 1, 0)]
+            + [("D2", lv, True, 1, g) for lv in LEVELS_D2]
+            + [("D2", 2, True, 1, 0)]
+            + [("D3", 0, False, tpb, g) for tpb in TILES_PER_BLOCK_D3])
+
+
+def split_of(k3_ms: float, k3_no_split_ms: float, records) -> dict:
+    """The split of K3's time from the stub records, each field named for
+    the probe and layout it reads; ``out_of_range`` lists the fields that
+    came out negative or above K3's time."""
+    ms = {(r["probe"], r["level"], r["tiles_per_block"], r["group"]):
+          r["ms"] for r in records}
+
+    def d(probe, level, group=EXACT_GROUP):
+        return ms[(probe, level, 1, group)]
+
+    no_split = {"k3_ms": k3_no_split_ms,
+                "d1_channel_major_l2_ms": d("D1", 2, 0),
+                "d2_pair_major_l2_ms": d("D2", 2, 0)}
+    split = {
+        "k3_ms": k3_ms, "group": EXACT_GROUP,
+        "mechanics_floor_ms_d2_pair_major": d("D2", 0),
+        "mechanics_share_of_k3_d2_pair_major": d("D2", 0) / k3_ms,
+        "loads_add_ms_d1_channel_major": d("D1", 1) - d("D1", 0),
+        "per_slot_pixel_op_ms_d1_channel_major": (d("D1", 2)
+                                                  - d("D1", 1)) / 9,
+        "mechanics_floor_ms_d1_channel_major": d("D1", 0),
+        "d1_channel_minus_d2_pair_major_l2_ms": d("D1", 2) - d("D2", 2),
+        "no_split": no_split}
+    values = {**{k: v for k, v in split.items() if "_ms" in k},
+              **{f"no_split.{k}": v for k, v in no_split.items()}}
+    del values["d1_channel_minus_d2_pair_major_l2_ms"]   # either sign
+    split["out_of_range"] = sorted(
+        k for k, v in values.items()
+        if v < 0 or v > (k3_no_split_ms if k.startswith("no_split")
+                         else k3_ms))
+    return split
 
 
 def measure(inputs, reps: int = 20, plain_reps: int = 3) -> dict:
-    """Time the real K3 and every stub on ``inputs`` (``street_inputs``'
-    tuple, on the card), hold each stub against its plain version, and
-    derive the split.  Returns {"k3_ms", "stubs": [records], "split"};
-    each record counts its own launches."""
+    """Time the real K3 (with and without its split) and every stub on
+    ``inputs`` (``street_inputs``' tuple, on the card): ``ms`` device time
+    (``profiling.device_ms``), ``wall_ms`` events around back-to-back
+    calls.  Hold each stub against its plain version and derive the split.
+    Returns {"k3_ms", "k3_wall_ms", "k3_no_split_ms", "stubs": [records],
+    "split"}; each record counts its own launches."""
     attrs, vcounts, wt, last_v, bg, tiles_x = inputs
     k = attrs.shape[1]
     layouts = {True: attrs, False: attrs.transpose(1, 2).contiguous()}
     with torch.no_grad():
-        k3_ms = event_ms(lambda: blend_exact(attrs, vcounts, wt, last_v, bg,
-                                             tiles_x), reps)
+        def k3():
+            return blend_exact(attrs, vcounts, wt, last_v, bg, tiles_x)
+        k3_ms, k3_wall_ms = device_ms(k3, reps), event_ms(k3, reps)
+        k3_no_split_ms = device_ms(lambda: blend_exact_launch(
+            attrs, vcounts, wt, last_v, bg, tiles_x, 0, None, 0), reps)
         records = []
-        for probe, level, pm, tpb in variants():
+        for probe, level, pm, tpb, group in variants():
             a = layouts[pm]
             args = (a, vcounts, wt, last_v, bg, tiles_x, level, pm)
             before = native.LAUNCHES["blend_exact_stub"]
-            ms = event_ms(lambda: blend_exact_stub(*args, tpb), reps)
-            got = blend_exact_stub(*args, tpb)
+
+            def stub():
+                return blend_exact_stub(*args, tpb, group)
+            ms, wall_ms = device_ms(stub, reps), event_ms(stub, reps)
+            got = stub()
             launches = native.LAUNCHES["blend_exact_stub"] - before
             plain_ms = event_ms(lambda: blend_exact_stub_plain(*args),
                                 plain_reps)
             want, terms = blend_exact_stub_plain(*args)
             bound_ms, bound_by, walked = stub_bound(vcounts, wt, last_v, k,
-                                                    level)
+                                                    level, group)
             records.append({
                 "probe": probe, "level": level,
                 "layout": "pair-major" if pm else "channel-major",
-                "tiles_per_block": tpb, "launches": launches, "ms": ms,
+                "tiles_per_block": tpb, "group": group,
+                "launches": launches, "ms": ms, "wall_ms": wall_ms,
                 "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "walked_slots": walked,
@@ -269,13 +405,9 @@ def measure(inputs, reps: int = 20, plain_reps: int = 3) -> dict:
                 "max_err_over_sum_terms": float(
                     ((got - want).abs() / terms[:, None, :].clamp_min(1e-30))
                     .max()) if level >= 1 else 0.0})
-    d1 = {r["level"]: r["ms"] for r in records if r["probe"] == "D1"}
-    split = {"k3_ms": k3_ms, "mechanics_floor_ms": d1[0],
-             "mechanics_share_of_k3": d1[0] / k3_ms,
-             "loads_add_ms": d1[1] - d1[0],
-             "per_slot_pixel_op_ms": (d1[2] - d1[1]) / 9,
-             "math_ms": k3_ms - d1[2], "layout": "D1 channel-major"}
-    return {"k3_ms": k3_ms, "stubs": records, "split": split}
+    return {"k3_ms": k3_ms, "k3_wall_ms": k3_wall_ms,
+            "k3_no_split_ms": k3_no_split_ms, "stubs": records,
+            "split": split_of(k3_ms, k3_no_split_ms, records)}
 
 
 def main(argv=None) -> dict:
@@ -289,7 +421,9 @@ def main(argv=None) -> dict:
                          "card (--device cuda)")
     card = smi("name,power.limit")
     res = measure(street_inputs(dev), args.reps)
-    print(json.dumps({"probe": "K3", "ms": res["k3_ms"], "card": card}))
+    print(json.dumps({"probe": "K3", "ms": res["k3_ms"],
+                      "wall_ms": res["k3_wall_ms"],
+                      "no_split_ms": res["k3_no_split_ms"], "card": card}))
     for r in res["stubs"]:
         print(json.dumps({**r, "card": card}))
     print(json.dumps({"split": res["split"], "card": card}))

@@ -3,7 +3,10 @@ kernel (``tools/kernel_floor.py``) against the TPU stub bodies of
 ``tools/kernel_floor_tpu.py`` (``_make_stub_kernel``, ``_make_stub_kernel_t``)
 run in interpret mode, on a small JAX exact binning padded to the tile
 batch as that tool pads it.  Levels 0, -1 and -2 must be equal; levels 2 and
-1 (f32 sums in another order) within rtol 1e-5."""
+1 (f32 sums in another order) within rtol 1e-5.  The plain twin of the
+stubs' window split (``blend_exact_stub_split_plain``, on K3's block
+tables) against the closed form and against the TPU stubs in interpret
+mode, within ``stub_error``'s bars."""
 
 import functools
 
@@ -19,6 +22,7 @@ from street_sparse_3dgs_tpu.data.toy import make_toy_scene
 from street_sparse_3dgs_tpu.ops import pallas_blend as pb
 from street_sparse_3dgs_tpu.ops.binning import bin_gaussians
 from street_sparse_3dgs_tpu.ops.preprocess import project_gaussians
+from street_sparse_3dgs_tpu_torch.ops import cuda_blend as cb
 from street_sparse_3dgs_tpu_torch.tools import kernel_floor as kf
 from tools import kernel_floor_tpu as kft
 
@@ -202,3 +206,77 @@ def test_stub_error_bars():
                       t, 1)
     with pytest.raises(AssertionError):
         kf.stub_error(want + 1e-7, want, t, 0)
+
+
+def layout_tensors(pair_major: bool):
+    _, attrs, vcounts, wt, last_v, tiles_x = binning()
+    a = torch.tensor(attrs[:vcounts.shape[0]])
+    if not pair_major:
+        a = a.transpose(1, 2).contiguous()
+    return (a, torch.tensor(vcounts), torch.tensor(wt), torch.tensor(last_v),
+            torch.tensor(BG), tiles_x)
+
+
+SPLIT_CASES = [(group, probe, level) for group in (1, 2, 3)
+               for probe, levels in (("D1", kf.LEVELS_D1),
+                                     ("D2", kf.LEVELS_D2))
+               for level in levels]
+
+
+@pytest.mark.parametrize("group,probe,level", SPLIT_CASES)
+def test_split_plain_matches_closed_form(group, probe, level):
+    """At groups of 1, 2 and 3 windows (the fixture's tiles have up to 4,
+    so every group splits some), the split's plain twin equals the closed
+    form: levels 0, -1, -2 exactly, 2 and 1 within SUM_RTOL of each pixel's
+    sum of |terms|."""
+    args = layout_tensors(probe == "D2") + (level, probe == "D2")
+    table = cb.exact_split_plan(*args[1:4], group)[0]
+    assert (table[:, 3] >= 0).any()
+    want, terms = kf.blend_exact_stub_plain(*args)
+    got = kf.blend_exact_stub_split_plain(*args, group=group)
+    assert got.shape == want.shape
+    kf.stub_error(got, want, terms, level)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_stub_out(level: int, pair_major: bool) -> np.ndarray:
+    """The TPU stub's output of ``level`` on the fixture: D2's transposed
+    stub with its channel axis padded to K, D1's as the tool runs it."""
+    return run_jax_stub(level, transposed=pair_major, tb=8,
+                        channels=kf.KCAP if pair_major else pb.N_CH)
+
+
+@pytest.mark.parametrize("group,probe,level", SPLIT_CASES)
+def test_split_plain_matches_jax_stub(group, probe, level):
+    """The split's plain twin at groups of 1, 2 and 3 windows against the
+    TPU stub bodies run in interpret mode (``run_jax_stub``): levels 0, -1,
+    -2 exactly, 2 and 1 within ``stub_error``'s bars (SUM_RTOL of each
+    pixel's sum of |terms|)."""
+    pm = probe == "D2"
+    args = layout_tensors(pm) + (level, pm)
+    got = kf.blend_exact_stub_split_plain(*args, group=group)
+    want = torch.tensor(jax_stub_out(level, pm))
+    assert got.shape == want.shape
+    kf.stub_error(got, want, torch.tensor(port_plain(level, pm)[1]), level)
+
+
+@pytest.mark.parametrize("group", [1, 2, 3])
+def test_bound_counts_phase_a(group):
+    """The bound's walked slots are the split's walk: each tile's live
+    blocks once, and the windows of its middle groups (neither the first
+    nor the last) once more, for phase A."""
+    _, _, vcounts, wt, last_v, _ = binning()
+    blocks = -(-np.minimum(vcounts, kf.KCAP) // 128)
+    want = 0
+    for vl in last_v:
+        nw = int(wt[vl]) + 1
+        first = int(vl) - nw + 1
+        want += int(blocks[first:first + nw].sum())
+        if nw > group:
+            for g in range(1, -(-nw // group) - 1):
+                v0 = first + g * group
+                want += int(blocks[v0:v0 + group].sum())
+    args = [torch.tensor(x) for x in (vcounts, wt, last_v)]
+    assert kf.stub_bound(*args, kf.KCAP, 2, group)[2] == want * 128
+    assert kf.stub_bound(*args, kf.KCAP, 2, 0)[2] == \
+        int(blocks[:int((wt[last_v] + 1).sum())].sum()) * 128
