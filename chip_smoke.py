@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's forward LOD render path, its training path and its
-street-scale tools path on the card and holds every hand-written kernel
-against its plain PyTorch version:
+Drives the port's forward LOD render path, its training path, its
+street-scale tools path and its hierarchy back end (post-optimization,
+merge, evaluation) on the card and holds every hand-written kernel against
+its plain PyTorch version:
 
 1. build   — compile ``street_sparse_3dgs_tpu_torch/csrc/*.cu`` (one nvcc per
              source, in parallel) into the ignored ``build/kernels/``;
@@ -54,8 +55,30 @@ against its plain PyTorch version:
              densifies); between them a checkpoint saved, reloaded and held
              bit for bit against the state, and 10 steps from each giving
              bit-identical losses; ``too_far_mask`` card against CPU;
-12. kernels_street — K1-K5 timed at the shapes of phases 4, 8, 9, and K3,
-             K4 at those of phase 11, K1 at phase 9's, K2 at phase 10's:
+12. post_opt — the back end's stage 4 at full width: a COLMAP project of
+             the 4 street views (PINHOLE 1920x1088, 100k points, GT the tau 0
+             renders of phase 5's tree as 8-bit PNGs, 16-bit inverse-depth
+             PNGs, test.txt naming view 3) written with the port's
+             ``data/colmap`` and ``data/png`` and loaded back through
+             ``load_scene_info`` and ``CameraStream`` (view matrices to 1e-5,
+             images exactly); the rows split at the median x into two chunks,
+             a hierarchy built and saved for each; on chunk 0 the compacted
+             render against the mask form (images, grads); 40 steps of
+             ``CompactPostDriver`` (production exact counts config, K5, K3,
+             K4) from an eighth of the default capacity, which grows and
+             redoes, bit-identical to a run started at the grown capacity;
+             anchors frozen, the photometric loss lower after; the optimised
+             tree saved and reloaded; ``tools/post_scaling`` (mask against
+             compacted step at 32k, 131k, 524k leaves);
+13. merge_eval — ``merge_hierarchies`` of the two chunks (node count, one
+             root, the cut each chunk's own and a partition at limits 0 and
+             1e9, at 0.05 wherever the cut metric is monotone along the
+             path; ``.hier.npz`` round trip), the tau sweep ``render_hierarchy_eval`` on the project's test view with
+             LPIPS (K5, K3; TF32 off, finite metrics, tau 0 PSNR >= 25 dB)
+             and one ``render_position`` call;
+14. kernels_street — K1-K5 timed at the shapes of phases 4, 8, 9, and K3,
+             K4 at those of phases 11 and 12, K1 at phase 9's, K2 at phase
+             10's:
              ``ms`` is device time (``profiling.device_ms``), ``wall_ms``
              the events around back-to-back calls, host cost included; K2
              beside its launch floor (the same call with every count 0); K3
@@ -65,9 +88,9 @@ against its plain PyTorch version:
              warp-slots where a pixel passes the alpha test, from which
              the bound is counted; K3 also deepest first, and against the
              split's plain twin;
-13. the kernels line (launches counted on phases 4, 5, 7, 8, 9, 10 and 11
-             only, error against the plain version, times, bound) and the
-             device line.
+15. the kernels line (launches counted on phases 4, 5, 7, 8, 9, 10, 11,
+             12 and 13 only, error against the plain version, times, bound)
+             and the device line.
 
 Every phase prints one JSON line.  Any failure raises and exits nonzero.
 Without a CUDA card it exits 1 before printing any result.
@@ -117,6 +140,11 @@ BENCH_N, BENCH_RES = 32768, 512
 SMALL_N, SMALL_W, SMALL_H = 2048, 256, 192
 STREET_STEPS, BENCH_STEPS, WARMUP_STEPS, LOOP_ITERS = 12, 20, 2, 300
 AUTO_SLICE, RESUME_STEPS = 180, 10       # train_street_auto
+POST_STEPS, POST_POINTS, N_ANCHORS = 40, 100_000, 1000   # post_opt
+# tests/test_hierarchy.py::test_compact_cut_render_matches_mask's bars.
+COMPACT_GRAD_BAR, COMPACT_GRAD_RTOL = 5e-4, 2e-3
+PSNR_TAU0_MIN = 25.0             # merge_eval: the GT is tau 0 of these rows
+POSITION_SHIFT = 2.0             # metres along x for render_position
 K5_EDGE_KS = (128, 384, 1024, 100)
 
 
@@ -690,6 +718,598 @@ def train_street_auto(dev, gt_points: torch.Tensor) -> dict:
           "too_far_seconds": time.perf_counter() - m0,
           "peak_memory_bytes": peak, "launches": launches})
     return {"launches": launches, "calls": calls}
+
+
+# ---- back end: post-optimization, merge, evaluation -------------------------
+
+def partition_report(h, cut, campos) -> dict:
+    """The check of tests/test_hierarchy.py::_check_partition, all leaves at
+    once (each walks one level up per round): the leaves whose root path
+    holds other than exactly one selected node, and of those, the ones
+    whose path is monotone in the cut metric.  Where a node's metric
+    (size over distance to its box's circumscribed sphere) exceeds its
+    parent's, the closed-form cut of ``select_cut`` — the JAX package's and
+    the port's alike — selects both an ancestor and a descendant, or
+    neither; on a monotone path it is a partition."""
+    from street_sparse_3dgs_tpu_torch.hierarchy.structure import _cut_metric
+    metric, parent_metric, _ = _cut_metric(h, campos)
+    rises = (h.parent >= 0) & (metric > parent_metric)
+    parent = h.parent.to(torch.int64)
+    sel = cut.selected.to(torch.int64)
+    node = torch.nonzero(h.child_count == 0).reshape(-1)
+    count = torch.zeros_like(node)
+    nonmono = torch.zeros_like(node, dtype=torch.bool)
+    while bool((node >= 0).any()):
+        alive = node >= 0
+        at = torch.clamp(node, min=0)
+        count += torch.where(alive, sel[at], torch.zeros_like(at))
+        nonmono |= alive & rises[at]
+        node = torch.where(alive, parent[at], torch.full_like(at, -1))
+    off = count != 1
+    return {"leaves": int(node.numel()), "off_partition": int(off.sum()),
+            "off_partition_on_monotone_paths": int((off & ~nonmono).sum()),
+            "nonmonotone_paths": int(nonmono.sum())}
+
+
+def merged_cut_matches_chunks(merged, chunks, campos, limit) -> bool:
+    """The merged tree's cut is each chunk's own cut, node for node, but at
+    the chunk roots, whose parent is now a super node: there it and the
+    super nodes follow the cut predicate with the super nodes' metric."""
+    from street_sparse_3dgs_tpu_torch.hierarchy.structure import (
+        _cut_metric, select_cut)
+    got = select_cut(merged, campos, limit).selected
+    metric, parent_metric, is_leaf = _cut_metric(merged, campos)
+    want = ((metric <= limit) | is_leaf) & (parent_metric > limit)
+    offset = 0
+    for h in chunks:
+        own = select_cut(h, campos, limit).selected
+        root = int(torch.nonzero(h.parent < 0)[0])
+        keep = torch.ones_like(own)
+        keep[root] = False
+        want[offset:offset + h.n_nodes] = torch.where(
+            keep, own, want[offset:offset + h.n_nodes])
+        offset += h.n_nodes
+    return bool(torch.equal(got, want))
+
+
+def post_step_stages(step, state, batch, limit, eye) -> dict:
+    """Device-time split of one post-opt step by CUDA events: the cut, the
+    compacted gather and lerp, the rasterizer's forward, the loss, the
+    backward (K4, the raster's slot->row reduction, the gather's backward,
+    the rest), Adam, and what is left of the step."""
+    from street_sparse_3dgs_tpu_torch.hierarchy import render as hr
+    from street_sparse_3dgs_tpu_torch.models import adam
+    from street_sparse_3dgs_tpu_torch.ops import cuda_blend as cb
+    from street_sparse_3dgs_tpu_torch.train import losses, post
+
+    def ev():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    targets = {"select_cut": (post, "select_cut"),
+               "gather_and_lerp": (hr, "blend_cut_compact"),
+               "rasterize": (hr, "rasterize"),
+               "loss": (losses, "photometric"),
+               "blend_exact_bwd": (cb, "blend_exact_bwd"),
+               "slot_grads_to_rows": (cb, "slot_grads_to_rows"),
+               "gather_backward": (hr, "slot_grads_to_rows"),
+               "adam": (adam, "step")}
+    originals = {k: getattr(m, n) for k, (m, n) in targets.items()}
+    spans = {k: [] for k in targets}
+
+    def timed(key):
+        fn = originals[key]
+
+        def wrapped(*args, **kw):
+            s = ev()
+            out = fn(*args, **kw)
+            spans[key].append((s, ev()))
+            return out
+        return wrapped
+
+    for k, (m, n) in targets.items():
+        setattr(m, n, timed(k))
+    try:
+        torch.cuda.synchronize()
+        start = ev()
+        step(state, batch, limit, eye)
+        end = ev()
+        torch.cuda.synchronize()
+    finally:
+        for k, (m, n) in targets.items():
+            setattr(m, n, originals[k])
+    ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+    backward = spans["loss"][-1][1].elapsed_time(spans["adam"][0][0])
+    ms["backward_rest"] = backward - ms["blend_exact_bwd"] - \
+        ms["slot_grads_to_rows"] - ms["gather_backward"]
+    ms["total"] = start.elapsed_time(end)
+    ms["other"] = ms["total"] - backward - sum(
+        ms[k] for k in ("select_cut", "gather_and_lerp", "rasterize", "loss",
+                        "adam"))
+    return ms
+
+
+def write_project(root: Path, scene, h, cfg, dev) -> list:
+    """A COLMAP project of the street views, written with the port's
+    ``data/colmap`` and ``data/png``: PINHOLE cameras, the first POST_POINTS
+    rows as points3D.bin (colours from the SH DC band), GT images the tau = 0
+    renders of ``h`` through ``render_cut_compact`` (8-bit PNGs), 16-bit
+    inverse-depth PNGs of the same renders with depth_params.json (scale the
+    view's largest inverse depth), and test.txt naming the last view.
+    Returns the GT images [H, W, 3] uint8."""
+    import json
+
+    import numpy as np
+
+    from street_sparse_3dgs_tpu_torch.data import colmap, png
+    from street_sparse_3dgs_tpu_torch.hierarchy.render import (
+        render_cut_compact)
+    from street_sparse_3dgs_tpu_torch.hierarchy.structure import (
+        pixel_limit, select_cut)
+    shutil.rmtree(root, ignore_errors=True)
+    sparse = root / "sparse" / "0"
+    sparse.mkdir(parents=True)
+    (root / "images").mkdir()
+    (root / "depths").mkdir()
+    cams, images, params, gts = {}, {}, {}, []
+    bg = torch.zeros(3, device=dev)
+    for v, cam in enumerate(scene.cameras):
+        vm = cam.viewmatrix.cpu().double().numpy()
+        focal = cam.width / (2.0 * float(cam.tan_fovx))
+        cams[v + 1] = colmap.ColmapCamera(
+            v + 1, "PINHOLE", cam.width, cam.height,
+            np.array([focal, cam.height / (2.0 * float(cam.tan_fovy)),
+                      cam.width / 2.0, cam.height / 2.0]))
+        name = f"view{v}.png"
+        images[v + 1] = colmap.ColmapImage(
+            v + 1, colmap.rotmat2qvec(vm[:3, :3]), vm[:3, 3], v + 1, name,
+            np.zeros((0, 2)), np.zeros(0, np.int64))
+        lim = pixel_limit(0.0, float(cam.tan_fovx), cam.width)
+        with torch.no_grad():
+            out = render_cut_compact(h.params, select_cut(h, cam.campos, lim),
+                                     h.n_nodes, h.skybox_count, cam, 3, bg,
+                                     cfg)
+        img = (torch.clamp(out["render"], 0, 1).permute(1, 2, 0) * 255).to(
+            torch.uint8).cpu().numpy()
+        png.write_png(root / "images" / name, img)
+        gts.append(img)
+        inv = out["depth"][0].cpu().numpy()
+        scale = float(inv.max())
+        png.write_png(root / "depths" / f"view{v}.png", np.round(
+            np.clip(inv / scale, 0, 1) * 65535).astype(np.uint16))
+        params[f"view{v}"] = {"scale": scale, "offset": 0.0}
+    xyz = scene.means3d[:POST_POINTS].cpu().double().numpy()
+    rgb = torch.clamp(0.5 + 0.28209479177387814 * scene.sh_coeffs[
+        :POST_POINTS, 0], 0, 1) * 255
+    n = xyz.shape[0]
+    colmap.write_model(cams, images, colmap.ColmapPoints(
+        xyz=xyz, rgb=rgb.to(torch.uint8).cpu().numpy(), error=np.zeros(n),
+        ids=np.arange(n, dtype=np.int64)), sparse)
+    (sparse / "depth_params.json").write_text(json.dumps(params))
+    (sparse / "test.txt").write_text(f"view{len(scene.cameras) - 1}.png\n")
+    return gts
+
+
+def post_opt(dev, scene, hier_path: Path, pipe) -> dict:
+    """Stage 4 of the pipeline on the card at full width: a COLMAP project
+    of the street views (``write_project``, GT from phase hierarchy's
+    saved tree) loaded back with ``load_scene_info`` and ``CameraStream``
+    (view matrices to 1e-5, GT images exactly); the rows split at the median
+    x into two chunks, a hierarchy built and saved for each; on chunk 0 at
+    view 0, tau 3, the compacted render against the mask form (images at
+    IMG_ATOL with FLIP_SHARE, grads within COMPACT_GRAD_BAR * max|g| +
+    COMPACT_GRAD_RTOL * |g|); then ``CompactPostDriver`` on chunk 0 in the
+    production exact counts config, POST_STEPS steps over the training
+    views, limits from ``random_limit(random.Random(0))``, starting at an
+    eighth of ``default_post_capacity`` (launches counted), which must grow
+    and redo; a second driver at the grown capacity must end bit for bit
+    where the first did; anchor rows (the first N_ANCHORS when the build
+    made none) unmoved and the rest moved; the photometric loss at tau 3
+    and 6 over the training views lower after than before; the optimised
+    hierarchy saved and reloaded equal; ``tools/post_scaling``'s
+    measurement.  Returns {"launches", "calls" (one K3 and one K4 call at
+    this phase's shapes), "chunks" (optimised chunk 0, chunk 1),
+    "project"}."""
+    import random
+
+    import numpy as np
+
+    from street_sparse_3dgs_tpu_torch import native
+    from street_sparse_3dgs_tpu_torch.config import (ModelConfig,
+                                                     OptimizationConfig)
+    from street_sparse_3dgs_tpu_torch.data.scene import (CameraStream,
+                                                         load_scene_info)
+    from street_sparse_3dgs_tpu_torch.hierarchy.build import build_hierarchy
+    from street_sparse_3dgs_tpu_torch.hierarchy.io import (load_hierarchy,
+                                                           save_hierarchy)
+    from street_sparse_3dgs_tpu_torch.hierarchy.render import (
+        render_cut, render_cut_compacted)
+    from street_sparse_3dgs_tpu_torch.hierarchy.structure import (
+        pixel_limit, select_cut)
+    from street_sparse_3dgs_tpu_torch.models.gaussians import GaussianParams
+    from street_sparse_3dgs_tpu_torch.ops import binning
+    from street_sparse_3dgs_tpu_torch.ops import cuda_blend as cb
+    from street_sparse_3dgs_tpu_torch.tools import post_scaling
+    from street_sparse_3dgs_tpu_torch.train.post import (
+        CompactPostDriver, default_post_capacity, init_post_state,
+        make_post_step, random_limit)
+    from street_sparse_3dgs_tpu_torch.train.step import raster_config
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    root = ROOT / "build" / "smoke" / "post_project"
+    rcfg = raster_config(pipe)
+    bg = torch.zeros(3, device=dev)
+    timing = {}
+
+    # The project, written and loaded back.
+    h_full = load_hierarchy(hier_path, device=dev)
+    gts = write_project(root, scene, h_full, rcfg, dev)
+    del h_full
+    timing["write_project_s"] = time.perf_counter() - t0
+    s0 = time.perf_counter()
+    info = load_scene_info(root, ModelConfig(eval=True, depths="depths"))
+    loaded = {}
+    for infos in (info.train_cameras, info.test_cameras):
+        stream = CameraStream(infos, resolution=1, shuffle=False, device=dev)
+        try:
+            for c, b in zip(infos, stream):
+                loaded[int(c.image_name[4:-4])] = b
+        finally:
+            stream.close()
+    timing["load_project_s"] = time.perf_counter() - s0
+    if sorted(loaded) != list(range(len(scene.cameras))) or \
+            len(info.test_cameras) != 1:
+        raise AssertionError(f"post_opt: loaded views {sorted(loaded)}, "
+                             f"{len(info.test_cameras)} test")
+    view_err = []
+    for v, cam in enumerate(scene.cameras):
+        b = loaded[v]
+        view_err.append(float((b.camera.viewmatrix - cam.viewmatrix)
+                              .abs().max()))
+        # The loader's arithmetic, on the host (a CUDA division by a scalar
+        # multiplies by its reciprocal, which rounds differently).
+        want = torch.from_numpy(gts[v].astype(np.float32).transpose(2, 0, 1)
+                                / 255.0)
+        if not torch.equal(b.gt_image.cpu(), want):
+            raise AssertionError(f"post_opt: view {v}'s GT image differs "
+                                 "from the written PNG")
+        if not bool(b.depth_reliable):
+            raise AssertionError(f"post_opt: view {v} lost its depth")
+    if max(view_err) > 1e-5:
+        raise AssertionError(f"post_opt: view matrices off by {view_err} "
+                             "(bar 1e-5)")
+    train_b = [loaded[v] for v in range(len(scene.cameras) - 1)]
+
+    # Two chunks at the median x, a hierarchy each.
+    s0 = time.perf_counter()
+    x = scene.means3d[:, 0]
+    side = x >= torch.median(x)
+    chunks, sizes = [], []
+    for c, rows in enumerate((~side, side)):
+        idx = torch.nonzero(rows).reshape(-1)
+        sizes.append(int(idx.numel()))
+        p = GaussianParams(
+            xyz=scene.means3d[idx], features_dc=scene.sh_coeffs[idx, :1],
+            features_rest=scene.sh_coeffs[idx, 1:],
+            log_scales=torch.log(scene.scales[idx]), quats=scene.quats[idx],
+            opacity_raw=scene.opacities[idx, None])
+        h_c = build_hierarchy(p, opacity_activation="abs", device=dev)
+        save_hierarchy(root / f"chunk{c}.hier.npz", h_c)
+        chunks.append(h_c)
+    timing["build_chunks_s"] = time.perf_counter() - s0
+    h0 = chunks[0]
+    anchors_marked = not bool(h0.anchors.any()) and h0.skybox_count == 0
+    if anchors_marked:
+        anchors = torch.zeros_like(h0.anchors)
+        anchors[:N_ANCHORS] = True
+        h0 = h0._replace(anchors=anchors)
+
+    # The two render forms on chunk 0, view 0, tau 3.
+    cam = scene.cameras[0]
+    cut = select_cut(h0, cam.campos, pixel_limit(3.0, float(cam.tan_fovx),
+                                                 cam.width))
+    n_sel = int(cut.selected.sum())
+    cap = 1 << (n_sel - 1).bit_length()
+
+    def form(compact: bool):
+        params = GaussianParams(*(p.detach().requires_grad_(True)
+                                  for p in h0.params))
+        if compact:
+            out = render_cut_compacted(params, cut, h0.n_nodes,
+                                       h0.skybox_count, cap, cam, 3, bg, rcfg)
+        else:
+            out = render_cut(params, cut, h0.n_nodes, h0.skybox_count, cam,
+                             3, bg, rcfg)
+        loss = out["render"].pow(2).mean() + 0.3 * out["depth"].pow(2).mean()
+        grads = torch.autograd.grad(loss, params)
+        return ({k: out[k].detach() for k in ("render", "depth",
+                                              "tile_overflow")},
+                float(loss), grads)
+
+    (out_m, loss_m, g_m), (out_c, loss_c, g_c) = form(False), form(True)
+    img_m = torch.cat([out_m["render"], out_m["depth"]])
+    img_c = torch.cat([out_c["render"], out_c["depth"]])
+    over = int(((img_c - img_m).abs().amax(dim=0) > IMG_ATOL).sum())
+    if over > FLIP_SHARE * cam.height * cam.width or \
+            int(out_m["tile_overflow"]) or int(out_c["tile_overflow"]):
+        raise AssertionError(f"post_opt: compacted render {over} pixels over "
+                             f"{IMG_ATOL}, tile_overflow "
+                             f"{int(out_m['tile_overflow'])} / "
+                             f"{int(out_c['tile_overflow'])}")
+    forms = {"cut": n_sel, "capacity": cap, "pixels_over_atol": over,
+             "max_abs_err": float((img_c - img_m).abs().max()),
+             "loss_mask": loss_m, "loss_compact": loss_c, "grads": {}}
+    for name, a, b in zip(GaussianParams._fields, g_m, g_c):
+        scale = float(a.abs().max())
+        diff = (b - a).abs()
+        outside = int((diff > COMPACT_GRAD_BAR * scale
+                       + COMPACT_GRAD_RTOL * a.abs()).sum())
+        forms["grads"][name] = {"max_scaled_err": float(diff.max()) / scale,
+                                "outside_bar": outside}
+        if outside or scale == 0.0:
+            raise AssertionError(f"post_opt: compacted grad {name}: "
+                                 f"{outside} elements outside the bar, "
+                                 f"max|g| {scale}")
+    del g_m, g_c, out_m, out_c, img_m, img_c
+
+    # The driver (main path, counted), then a second one at the grown
+    # capacity.
+    opt = OptimizationConfig()
+    eye = torch.eye(3, 4, device=dev)
+    start_cap = default_post_capacity(
+        h0, [b.camera.campos.cpu().numpy() for b in train_b]) // 8
+
+    def drive(capacity):
+        d = CompactPostDriver(h0, opt, pipe, capacity, skybox_locked=True,
+                              use_trained_exp=True)
+        rng = random.Random(0)
+        rec = {"step_ms": [], "capacity": [], "cut": [], "loss": []}
+        for i in range(POST_STEPS):
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            aux = d.step(train_b[i % len(train_b)], random_limit(rng), eye)
+            torch.cuda.synchronize()
+            rec["step_ms"].append((time.perf_counter() - s0) * 1e3)
+            rec["capacity"].append(d.capacity)
+            if aux is not None:
+                rec["cut"].append(int(aux["n_selected"]))
+                rec["loss"].append(float(aux["loss"]))
+        return d, d.finish(), rec
+
+    native.reset_launches()
+    d1, state1, rec1 = drive(start_cap)
+    torch.cuda.synchronize()
+    launches = dict(native.LAUNCHES)
+    for name in ("slab_gather", "blend_exact", "blend_exact_bwd"):
+        if launches[name] == 0:
+            raise AssertionError(f"post_opt never launched {name}")
+    if d1.redos == 0 or d1.capacity <= start_cap:
+        raise AssertionError(f"post_opt: the driver did not grow "
+                             f"({start_cap} -> {d1.capacity}, {d1.redos} "
+                             "redos)")
+    d2, state2, _ = drive(d1.capacity)
+    if d2.redos or not all(torch.equal(a, b) for a, b in zip(
+            state_leaves(state1).values(), state_leaves(state2).values())):
+        raise AssertionError("post_opt: the driver's redo differs from a run "
+                             f"started at capacity {d1.capacity}")
+    del d2, state2
+    frozen = d1._step.frozen_rows
+    for name, a, b in zip(GaussianParams._fields, h0.params, state1.params):
+        if not torch.equal(a[frozen], b[frozen]):
+            raise AssertionError(f"post_opt: frozen rows of {name} moved")
+    moved = {name: int((a[~frozen] != b[~frozen]).reshape(
+        int((~frozen).sum()), -1).any(dim=1).sum())
+        for name, a, b in zip(GaussianParams._fields, h0.params,
+                              state1.params)}
+    if not moved["xyz"] or not moved["features_dc"]:
+        raise AssertionError(f"post_opt: unfrozen rows did not move {moved}")
+
+    # The photometric loss at fixed limits, before and after (mask form).
+    probe = make_post_step(h0, opt, pipe, skybox_locked=True,
+                           use_trained_exp=True)
+
+    def photometric(params):
+        out = {}
+        for tau in (3.0, 6.0):
+            for v, b in enumerate(train_b):
+                c = select_cut(h0, b.camera.campos, pixel_limit(
+                    tau, float(b.camera.tan_fovx), b.camera.width))
+                with torch.no_grad():
+                    out[f"view{v} tau{tau:g}"] = float(
+                        probe.loss(params, b, c, eye)[0])
+        return out
+
+    before, after = photometric(h0.params), photometric(state1.params)
+    if not statistics.mean(after.values()) < statistics.mean(
+            before.values()):
+        raise AssertionError(f"post_opt: photometric loss did not fall: "
+                             f"{before} -> {after}")
+
+    # K3 and K4 at this phase's shapes: one step at the grown capacity.
+    step = make_post_step(h0, opt, pipe, skybox_locked=True,
+                          use_trained_exp=True, compact_capacity=d1.capacity)
+    with Recorder(cb, "blend_exact", first_only=True) as k3, \
+            Recorder(cb, "blend_exact_bwd", first_only=True) as k4, \
+            Recorder(binning, "slab_gather", first_only=True) as k5:
+        step(init_post_state(h0), train_b[0], random_limit(random.Random(0)),
+             eye)
+    calls = {"blend_exact": k3.calls[0], "blend_exact_bwd": k4.calls[0],
+             "slab_gather": k5.calls[0]}
+    lim = random_limit(random.Random(0))
+    stages = post_step_stages(step, state1, train_b[0], lim, eye)
+    prof = device_profile(lambda: step(state1, train_b[0], lim, eye))
+    del step, probe
+
+    s0 = time.perf_counter()
+    h_opt = h0._replace(params=state1.params)
+    opt_path = root / "hierarchy.hier_opt.npz"
+    save_hierarchy(opt_path, h_opt)
+    back = load_hierarchy(opt_path, device=dev)
+    if not (back.skybox_count == h_opt.skybox_count and all(
+            torch.equal(a, b) for a, b in zip(
+                list(back.params) + list(back[1:-1]),
+                list(h_opt.params) + list(h_opt[1:-1])))):
+        raise AssertionError("post_opt: hier_opt reloaded differs")
+    timing["save_load_hier_opt_s"] = time.perf_counter() - s0
+    peak = torch.cuda.max_memory_allocated()
+    del state1, back
+
+    s0 = time.perf_counter()
+    scaling = post_scaling.measure(dev)
+    timing["post_scaling_s"] = time.perf_counter() - s0
+    torch.cuda.synchronize()
+    emit({"phase": "post_opt", "seconds": time.perf_counter() - t0,
+          "views": len(scene.cameras), "width": WIDTH, "height": HEIGHT,
+          "points3d": POST_POINTS, "view_matrix_max_err": max(view_err),
+          "gt_images_equal": True, "chunk_rows": sizes,
+          "chunk_nodes": [h.n_nodes for h in chunks],
+          "anchors_marked": N_ANCHORS if anchors_marked else 0,
+          "frozen_rows": int(frozen.sum()),
+          "config": {k: v for k, v in vars(pipe).items()},
+          "forms_at_view0_tau3": forms,
+          "steps": POST_STEPS, "train_views": len(train_b),
+          "start_capacity": start_cap, "final_capacity": d1.capacity,
+          "capacity_path": rec1["capacity"], "redos": d1.redos,
+          "redo_bit_identical": True, "cut_sizes": rec1["cut"],
+          "step_ms": rec1["step_ms"],
+          "step_ms_median": statistics.median(rec1["step_ms"][WARMUP_STEPS:]),
+          "losses": rec1["loss"], "rows_moved": moved,
+          "photometric_before": before, "photometric_after": after,
+          "stage_ms": stages, **prof,
+          "peak_memory_bytes": peak, "launches": launches,
+          "post_scaling": scaling, **timing})
+    return {"launches": launches, "calls": calls, "chunks": [h_opt, chunks[1]],
+            "project": root, "chunk_nodes": [h.n_nodes for h in chunks]}
+
+
+def merge_eval(dev, chunks, project: Path, pipe, campos) -> dict:
+    """Stage 5 and the eval on the card: ``merge_hierarchies`` of the
+    optimised chunk 0 and chunk 1 (one node more than the chunks, one root;
+    the cut from ``campos`` at limits 0, 0.05 and 1e9 each chunk's own cut
+    and, by ``partition_report``, a partition at 0 and 1e9 and at 0.05 on
+    every path where the metric is monotone; a ``.hier.npz`` round trip),
+    then ``render_hierarchy_eval`` of the merged tree on the test view of
+    phase post_opt's project at TAUS with LPIPS (launches
+    counted; TF32 switched on before it and off after; every metric finite,
+    tau 0's PSNR at least PSNR_TAU0_MIN, tau 15's no higher than tau 0's)
+    and one ``render_position`` call at tau 0, shifted, its PNGs written.
+    Returns {"launches"}."""
+    import numpy as np
+
+    from street_sparse_3dgs_tpu_torch import native
+    from street_sparse_3dgs_tpu_torch.config import ModelConfig
+    from street_sparse_3dgs_tpu_torch.data import png
+    from street_sparse_3dgs_tpu_torch.data.scene import load_scene_info
+    from street_sparse_3dgs_tpu_torch.eval.render_hier import (
+        render_hierarchy_eval)
+    from street_sparse_3dgs_tpu_torch.eval.render_position import (
+        group_cameras_by_center, render_position)
+    from street_sparse_3dgs_tpu_torch.hierarchy.io import (load_hierarchy,
+                                                           save_hierarchy)
+    from street_sparse_3dgs_tpu_torch.hierarchy.merge import (
+        merge_hierarchies)
+    from street_sparse_3dgs_tpu_torch.hierarchy.structure import select_cut
+    t0 = time.perf_counter()
+    out_root = ROOT / "build" / "smoke" / "merge_eval"
+    shutil.rmtree(out_root, ignore_errors=True)
+    merged = merge_hierarchies(chunks, device=dev)
+    merge_s = time.perf_counter() - t0
+    n_a, n_b = (h.n_nodes for h in chunks)
+    roots = int((merged.parent < 0).sum())
+    if merged.n_nodes != n_a + n_b + 1 or roots != 1:
+        raise AssertionError(f"merge_eval: {merged.n_nodes} nodes from "
+                             f"{n_a} + {n_b}, {roots} roots")
+    partition = {}
+    for lim in (0.0, 0.05, 1e9):
+        rep = partition_report(merged, select_cut(merged, campos, lim),
+                               campos)
+        rep["chunks"] = [partition_report(h, select_cut(h, campos, lim),
+                                          campos)["off_partition"]
+                         for h in chunks]
+        partition[f"{lim:g}"] = rep
+        # A partition at the extremes; in between, wherever the metric is
+        # monotone along the path (PERF.md §6), and the chunks' cuts
+        # kept node for node.
+        if (rep["off_partition"] if lim in (0.0, 1e9)
+                else rep["off_partition_on_monotone_paths"]) or \
+                not merged_cut_matches_chunks(merged, chunks, campos, lim):
+            raise AssertionError(f"merge_eval: the cut at limit {lim}: "
+                                 f"{rep}")
+    s0 = time.perf_counter()
+    path = out_root / "merged.hier.npz"
+    save_hierarchy(path, merged)
+    back = load_hierarchy(path, device=dev)
+    if not (back.skybox_count == merged.skybox_count and all(
+            torch.equal(a, b) for a, b in zip(
+                list(back.params) + list(back[1:-1]),
+                list(merged.params) + list(merged[1:-1])))):
+        raise AssertionError("merge_eval: merged.hier.npz reloaded differs")
+    io_s = time.perf_counter() - s0
+    del back
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    cfg = ModelConfig(eval=True, depths="depths", resolution=1)
+    native.reset_launches()
+    s0 = time.perf_counter()
+    # The eval's per-tau lines go to stderr: stdout holds the JSON lines.
+    with contextlib.redirect_stdout(sys.stderr):
+        res = render_hierarchy_eval(merged, str(project), cfg, pipe,
+                                    taus=TAUS, out_dir=out_root,
+                                    with_lpips=True, with_breakdowns=True)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - s0
+    launches = dict(native.LAUNCHES)
+    if torch.backends.cudnn.allow_tf32 or \
+            torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("merge_eval: the eval left TF32 on")
+    for name in ("slab_gather", "blend_exact"):
+        if launches[name] == 0:
+            raise AssertionError(f"merge_eval: the eval never launched "
+                                 f"{name}")
+    values = [v for r in res.values() for k, v in r.items()
+              if isinstance(v, float)]
+    values += [x for r in res.values() for band in r["bands"].values()
+               for x in band.values()]
+    if len(values) < 5 * len(TAUS) or \
+            not all(math.isfinite(v) for v in values) or \
+            any(r.get("lpips_weights") not in ("random", "calibrated")
+                for r in res.values()):
+        raise AssertionError(f"merge_eval: metrics {res}")
+    if not (res[0.0]["psnr"] >= PSNR_TAU0_MIN
+            and res[15.0]["psnr"] <= res[0.0]["psnr"]):
+        raise AssertionError(f"merge_eval: PSNR tau 0 {res[0.0]['psnr']} "
+                             f"(bar {PSNR_TAU0_MIN}), tau 15 "
+                             f"{res[15.0]['psnr']}")
+
+    s0 = time.perf_counter()
+    info = load_scene_info(project, ModelConfig(eval=True))
+    centre = next(iter(sorted(group_cameras_by_center(
+        info.test_cameras).items())))[1][0][1]
+    with contextlib.redirect_stdout(sys.stderr):
+        written = render_position(merged, str(project), float(centre[0])
+                                  + POSITION_SHIFT, float(centre[1]),
+                                  out_dir=out_root / "position",
+                                  model_cfg=ModelConfig(eval=True),
+                                  pipe=pipe, tau=0.0, resolution=1)
+    position_s = time.perf_counter() - s0
+    shifted = [png.read_png(p) for p in written]
+    if not written or any(a.shape != (HEIGHT, WIDTH, 3) or
+                          float(np.std(a)) == 0.0 for a in shifted):
+        raise AssertionError(f"merge_eval: render_position wrote {written}")
+    emit({"phase": "merge_eval", "seconds": time.perf_counter() - t0,
+          "merge_seconds": merge_s, "save_load_seconds": io_s,
+          "eval_seconds": eval_s, "position_seconds": position_s,
+          "nodes": merged.n_nodes, "chunk_nodes": [n_a, n_b],
+          "partition": partition, "taus": list(TAUS),
+          "eval": {f"{tau:g}": r for tau, r in res.items()},
+          "tf32_off_after_eval": True,
+          "position_files": [p.name for p in written],
+          "position_shift_m": POSITION_SHIFT,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+          "launches": launches})
+    return {"launches": launches}
 
 
 def grads_small(dev) -> dict:
@@ -1270,9 +1890,9 @@ def main() -> int:
         opacity_raw=scene.opacities[:, None])
     h = build_hierarchy(params, opacity_activation="abs", device=dev)
     build_s = time.perf_counter() - t0
-    path = ROOT / "build" / "smoke" / "street.hier.npz"
-    save_hierarchy(path, h)
-    h2 = load_hierarchy(path, device=dev)
+    hier_path = ROOT / "build" / "smoke" / "street.hier.npz"
+    save_hierarchy(hier_path, h)
+    h2 = load_hierarchy(hier_path, device=dev)
     for name in ("parent", "child_count", "size", "box_center"):
         if not torch.equal(getattr(h, name), getattr(h2, name)):
             raise AssertionError(f"hierarchy field {name} changed on reload")
@@ -1387,14 +2007,21 @@ def main() -> int:
     loop_rec = train_loop_toy(dev)
     auto_rec = train_street_auto(dev, scene.means3d)
 
-    # ---- 12. kernels at the street shapes of view 0 -----------------------
+    # ---- 12-13. the back end: post-opt, merge, eval (main path, counted) --
+    post_rec = post_opt(dev, scene, hier_path, street_pipe)
+    merge_rec = merge_eval(dev, post_rec.pop("chunks"), post_rec["project"],
+                           street_pipe, scene.cameras[0].campos)
+
+    # ---- 14. kernels at the street shapes of view 0 -----------------------
     t0 = time.perf_counter()
     counted = {"render": launches_render, "hierarchy": launches_hier,
                "kernel_floor": launches_floor,
                "train_street": street_rec["launches"],
                "train_bench": bench_rec["launches"],
                "train_loop_toy": loop_rec["launches"],
-               "train_street_auto": auto_rec["launches"]}
+               "train_street_auto": auto_rec["launches"],
+               "post_opt": post_rec["launches"],
+               "merge_eval": merge_rec["launches"]}
 
     def launches_of(key):
         by = {p: c[key] for p, c in counted.items() if c[key]}
@@ -1553,19 +2180,58 @@ def main() -> int:
                 flips=cmp["flips"], vs_split_plain=split_cmp,
                 **k3_checks(args, ms))
 
-    k5_args = ex["k5"]
-    sorted_vals, starts, counts_v, k_cap = k5_args[:4]
-    ms = device_ms(lambda: binning.slab_gather(*k5_args), 50)
-    wall_ms = event_ms(lambda: binning.slab_gather(*k5_args), 50)
-    plain_ms = event_ms(lambda: binning.slab_gather_plain(*k5_args), 5)
-    padded = torch.cat([sorted_vals, torch.zeros(k_cap, dtype=torch.int64,
-                                                 device=dev)])
-    idx = (starts.to(torch.int64)[:, None]
-           + torch.arange(k_cap, device=dev)[None, :])
-    library_ms = device_ms(lambda: padded[idx], 50)
-    library_wall_ms = event_ms(lambda: padded[idx], 50)
-    live = int(torch.clamp(counts_v, max=k_cap).sum())
-    k5_bytes = live * 8 + starts.shape[0] * 8 + starts.shape[0] * k_cap * 4
+    # K3 and K4 at the post_opt shapes (chunk 0's compacted cut, 1920x1088,
+    # one step at the grown capacity).
+    for key, plain in (("blend_exact", cb.blend_exact_plain),
+                       ("blend_exact_bwd", cb.blend_exact_bwd_plain)):
+        args, out = post_rec["calls"][key]
+        kern = getattr(cb, key)
+        ms = device_ms(lambda: kern(*args), 20)
+        if key == "blend_exact":
+            cmp = compare_blend(out, plain(*args))
+            check_blend("K3 at post_opt", cmp, strict=False)
+            b_ms, b_by, live, walk = fwd_bound(args, out, True, sfu_rate)
+        else:
+            cmp = compare_grads("K4 at post_opt", out, plain(*args), 2)
+            b_ms, b_by, live, walk = bwd_bound(args, True, sfu_rate)
+        entry = next(k for k in kernels if k["name"].endswith(" " + key))
+        entry["at_post_opt"] = {
+            "ms": ms, "wall_ms": event_ms(lambda: kern(*args), 20),
+            "plain_ms": event_ms(lambda: plain(*args), 2),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": cmp["max_abs_err"], "live_slots": live,
+            "tiles": args[3].shape[0], **walk}
+
+    def k5_timing(k5_args, k5_out) -> dict:
+        """K5 on a recorded call: device and wall ms, the plain version's,
+        the byte bound (live keys read, starts and counts, the table
+        written) and the library call ``padded[starts + arange(K)]``."""
+        sorted_vals, starts, counts_v, k_cap = k5_args[:4]
+        padded = torch.cat([sorted_vals, torch.zeros(
+            k_cap, dtype=torch.int64, device=dev)])
+        idx = (starts.to(torch.int64)[:, None]
+               + torch.arange(k_cap, device=dev)[None, :])
+        live = int(torch.clamp(counts_v, max=k_cap).sum())
+        k5_bytes = (live * 8 + starts.shape[0] * 8
+                    + starts.shape[0] * k_cap * 4)
+        return {"ms": device_ms(lambda: binning.slab_gather(*k5_args), 50),
+                "wall_ms": event_ms(lambda: binning.slab_gather(*k5_args),
+                                    50),
+                "plain_ms": event_ms(
+                    lambda: binning.slab_gather_plain(*k5_args), 5),
+                "bound_ms": k5_bytes / PEAK_BYTES_S * 1e3,
+                "bound_by": "bytes",
+                "library_ms": device_ms(lambda: padded[idx], 50),
+                "library_wall_ms": event_ms(lambda: padded[idx], 50),
+                "max_abs_err": float((k5_out - binning.slab_gather_plain(
+                    *k5_args)).abs().max()),
+                "rows": starts.shape[0], "k": k_cap, "live_slots": live}
+
+    k5 = k5_timing(ex["k5"], ex["k5_out"])
+    k5_post = k5_timing(*post_rec["calls"]["slab_gather"])
+    if k5["max_abs_err"] or k5_post["max_abs_err"]:
+        raise AssertionError("K5: kernel table differs from plain")
+    del post_rec
     kernels.append({
         "name": "K5 slab_gather", "route": "cuda",
         "source": "street_sparse_3dgs_tpu_torch/csrc/slab_gather.cu",
@@ -1574,14 +2240,8 @@ def main() -> int:
         "launches_per_view": (launches_render["slab_gather"]
                               + launches_hier["slab_gather"])
         / (n_renders["slab_gather"] * (1 + TIMED_RUNS)),
-        "max_abs_err": float((ex["k5_out"] - binning.slab_gather_plain(
-            *k5_args)).abs().max()),
-        "tolerance": "exactly equal",
-        "ms": ms, "wall_ms": wall_ms, "plain_ms": plain_ms,
-        "bound_ms": k5_bytes / PEAK_BYTES_S * 1e3, "bound_by": "bytes",
-        "library_ms": library_ms, "library_wall_ms": library_wall_ms,
-        "shapes": "street view 0",
-        "rows": starts.shape[0], "k": k_cap, "live_slots": live})
+        "tolerance": "exactly equal", **k5, "shapes": "street view 0",
+        "at_post_opt": k5_post})
     # D1-D3 at the street shapes of the kernel_floor phase: the headline
     # variant (level 2; D3 one tile a block) and every variant beside it.
     for probe, replaces in (("D1", "tools/kernel_floor_tpu.py:40"),

@@ -6,8 +6,8 @@ Each converter takes the JAX object's fields as numpy arrays — as
 objects as nested mappings (or the objects themselves) — and returns the
 port's object on ``device``.  ``to_numpy`` goes the other way, so a round
 trip returns the same arrays.  The configuration dataclasses convert field
-by field (``config_from``).  ``TrainState.step`` stays on the CPU, where
-the port's step reads it.
+by field (``config_from``).  ``TrainState.step`` and
+``PostTrainState.step`` stay on the CPU, where the port's steps read them.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from .device import DEFAULT_DEVICE, resolve_device
 from .hierarchy.structure import Hierarchy
 from .models import adam
 from .models.gaussians import GaussianParams
+from .train.post import PostTrainState
 from .train.step import CameraBatch, TrainState
 
 _CAMERA_TENSORS = CameraParams._fields[:7]
@@ -91,6 +92,23 @@ def train_state_from_numpy(fields: Mapping,
                                           t(e["step"])),
         grad_accum=t(f["grad_accum"]), denom=t(f["denom"]),
         max_radii2d=t(f["max_radii2d"]),
+        step=torch.as_tensor(np.array(f["step"])))
+
+
+def post_state_from_numpy(fields: Mapping,
+                          device: str | torch.device = DEFAULT_DEVICE
+                          ) -> PostTrainState:
+    """A JAX ``PostTrainState``: params, adam_state (mu, nu, step) and
+    step."""
+    dev = resolve_device(device)
+    f = _fields(fields)
+    a = _fields(f["adam_state"])
+    return PostTrainState(
+        params=params_from_numpy(_fields(f["params"]), dev),
+        adam_state=adam.AdamState(
+            mu=params_from_numpy(_fields(a["mu"]), dev),
+            nu=params_from_numpy(_fields(a["nu"]), dev),
+            step=_tensor(a["step"], dev)),
         step=torch.as_tensor(np.array(f["step"])))
 
 

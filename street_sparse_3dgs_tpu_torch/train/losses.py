@@ -4,8 +4,9 @@ C2 = 0.03^2), the photometric mix, the inverse-depth terms and PSNR.
 
 The SSIM window is two separable depthwise ``F.conv2d`` passes with zero
 padding.  The JAX package runs them at HIGHEST precision; here they must
-not run in TF32 either: the training entry (``train.step.make_train_step``)
-turns TF32 off for cuDNN and matmuls, and ``chip_smoke.py`` asserts it.
+not run in TF32 either: the training, post-opt and eval entry points turn
+it off for cuDNN and matmuls (``tf32_off``), and ``chip_smoke.py``
+asserts it.
 """
 
 from __future__ import annotations
@@ -18,6 +19,14 @@ import torch.nn.functional as F
 
 _C1 = 0.01 ** 2
 _C2 = 0.03 ** 2
+
+
+def tf32_off() -> None:
+    """Full f32 for cuDNN convolutions (the SSIM window, LPIPS) and matmuls,
+    as the JAX package runs them; the training, post-opt and eval entry
+    points call it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 def l1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -325,8 +325,7 @@ def make_train_step(
 
     Turns TF32 off for matmuls and cuDNN convolutions (the SSIM window):
     the JAX package runs them at full f32 precision."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    losses.tf32_off()
     return TrainStep(
         meta, opt, pipe, spatial_lr_scale,
         sh_degree_schedule=sh_degree_schedule, is_depth_only=is_depth_only,

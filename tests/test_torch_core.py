@@ -195,7 +195,7 @@ def test_convert_round_trip():
 
 def test_port_imports_no_jax():
     """Every port module and chip_smoke.py import without JAX or the JAX
-    package."""
+    package, and without PIL or OpenCV (the card's machine has neither)."""
     code = f"""
 import importlib, pkgutil, sys
 sys.path.insert(0, {str(ROOT)!r})
@@ -208,6 +208,8 @@ bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "street_sparse_3dgs_tpu"
        or m.startswith("street_sparse_3dgs_tpu.")]
 assert not bad, bad
+imaging = [m for m in sys.modules if m.split(".")[0] in ("PIL", "cv2")]
+assert not imaging, imaging
 print(len(names))
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -2,8 +2,11 @@
 ``.hier.npz`` written by either package loads in the other, ``select_cut``
 and ``budget_limit`` select the same cut, and ``render_cut_compact`` /
 ``render_cut`` render it like the JAX package (image, depth and alpha to
-2e-5; the JAX Pallas kernels run in interpret mode)."""
+2e-5; the JAX Pallas kernels run in interpret mode), and
+``merge_hierarchies`` gives JAX's merged tree exactly (both run the same
+numpy)."""
 
+import contextlib
 import functools
 
 import numpy as np
@@ -17,6 +20,8 @@ from street_sparse_3dgs_tpu.hierarchy import render as jrender
 from street_sparse_3dgs_tpu.hierarchy import structure as jst
 from street_sparse_3dgs_tpu.hierarchy.build import (
     build_hierarchy as j_build)
+from street_sparse_3dgs_tpu.hierarchy.merge import (
+    merge_hierarchies as j_merge)
 from street_sparse_3dgs_tpu.models.gaussians import (GaussianParams,
                                                      inverse_sigmoid)
 from street_sparse_3dgs_tpu.ops.rasterize import RasterConfig as JConfig
@@ -26,6 +31,8 @@ from street_sparse_3dgs_tpu_torch.hierarchy import render as trender
 from street_sparse_3dgs_tpu_torch.hierarchy import structure as tst
 from street_sparse_3dgs_tpu_torch.hierarchy.build import (
     build_hierarchy as t_build)
+from street_sparse_3dgs_tpu_torch.hierarchy.merge import (
+    merge_hierarchies as t_merge)
 from street_sparse_3dgs_tpu_torch.ops.rasterize import RasterConfig
 
 torch.set_num_threads(1)
@@ -187,3 +194,149 @@ def test_render_cut_mask_form_matches_jax():
     for a, b in zip(xyz_t, xyz_j):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
                                    atol=1e-6)
+
+
+def check_partition(h, cut):
+    """Every leaf has exactly one selected node on its root path (a copy of
+    tests/test_hierarchy.py::_check_partition)."""
+    parent = np.asarray(h.parent)
+    sel = np.asarray(cut.selected)
+    leaves = np.nonzero(np.asarray(h.child_count) == 0)[0]
+    for leaf in leaves:
+        count = 0
+        node = leaf
+        while node >= 0:
+            count += int(sel[node])
+            node = parent[node]
+        assert count == 1, (leaf, count)
+
+
+@functools.lru_cache(maxsize=None)
+def merge_chunks(n_chunks):
+    """JAX hierarchies of ``n_chunks`` shifted toy chunks (the first with a
+    scaffold block and a skybox tail, whose tail the merge keeps) and their
+    port copies."""
+    hs_j, hs_t = [], []
+    for i in range(n_chunks):
+        s = make_toy_scene(seed=1 + i, n=60 - 5 * i, n_cameras=1, width=64,
+                           height=64)
+        params = GaussianParams(
+            xyz=s.means3d + 5.0 * i, features_dc=s.sh_coeffs[:, :1, :],
+            features_rest=s.sh_coeffs[:, 1:, :],
+            log_scales=jnp.log(s.scales), quats=s.quats,
+            opacity_raw=inverse_sigmoid(s.opacities)[:, None])
+        kw = dict(scaffold_rows=12, skybox_rows=4) if i == 0 else {}
+        h_j = j_build(params, **kw)
+        hs_j.append(h_j)
+        hs_t.append(convert.hierarchy_from_numpy(
+            {**{k: np.asarray(getattr(h_j, k)) for k in h_j._fields[1:-1]},
+             "params": {k: np.asarray(v)
+                        for k, v in h_j.params._asdict().items()},
+             "skybox_count": h_j.skybox_count}, device="cpu"))
+    return hs_j, hs_t
+
+
+@pytest.mark.parametrize("n_chunks", [2, 3])
+def test_merge_hierarchies_matches_jax(n_chunks):
+    """Two and three chunks (an odd count carries a root up the chain):
+    every field equal to JAX's merge, exactly; one more node per merge,
+    exactly one root, the first chunk's skybox tail, and the cut a
+    partition at limits 0, 0.05 and 1e9 (as test_merge_two_chunks)."""
+    hs_j, hs_t = merge_chunks(n_chunks)
+    m_j = j_merge(hs_j)
+    m_t = t_merge(hs_t, device="cpu")
+    fa, fb = fields(m_t), fields(m_j)
+    assert fa.keys() == fb.keys()
+    for k in fa:
+        np.testing.assert_array_equal(fa[k], fb[k], err_msg=k)
+        if k != "skybox_count":
+            assert fa[k].dtype == fb[k].dtype, k
+    assert m_t.n_nodes == sum(h.n_nodes for h in hs_t) + n_chunks - 1
+    assert int((m_t.parent < 0).sum()) == 1
+    assert m_t.skybox_count == hs_t[0].skybox_count > 0
+    campos = torch.tensor([0.0, 0.0, 3.0])
+    for lim in (0.0, 0.05, 1e9):
+        check_partition(m_t, tst.select_cut(m_t, campos, lim))
+    assert int(tst.select_cut(m_t, campos, 1e9).selected.sum()) == 1
+
+
+def test_merge_of_one_chunk_moves_it():
+    _, hs_t = merge_chunks(2)
+    m = t_merge(hs_t[:1], device="cpu")
+    assert_same_hierarchy(m, hs_t[0])
+    with pytest.raises(RuntimeError, match="device='cpu'") if not \
+            torch.cuda.is_available() else contextlib.nullcontext():
+        t_merge(hs_t)
+
+
+def test_smoke_partition_check_agrees():
+    """chip_smoke's all-leaves-at-once partition check says what
+    ``check_partition`` says: no leaf off the partition on merged cuts, and
+    a cut with a node dropped or a parent added caught; the merged cut is
+    the chunks' own, node for node, and not once the merge is broken."""
+    import chip_smoke
+
+    _, hs_t = merge_chunks(3)
+    m = t_merge(hs_t, device="cpu")
+    campos = torch.tensor([0.0, 0.0, 3.0])
+    for lim in (0.0, 0.05, 1e9):
+        cut = tst.select_cut(m, campos, lim)
+        check_partition(m, cut)
+        rep = chip_smoke.partition_report(m, cut, campos)
+        assert rep["off_partition"] == 0 and rep["leaves"] == int(
+            (m.child_count == 0).sum())
+        assert chip_smoke.merged_cut_matches_chunks(m, hs_t, campos, lim)
+    cut = tst.select_cut(m, campos, 0.05)
+    sel = cut.selected.clone()
+    first = int(torch.nonzero(sel)[0])
+    sel[first] = False
+    rep = chip_smoke.partition_report(m, cut._replace(selected=sel), campos)
+    assert rep["off_partition"] > 0
+    sel = cut.selected.clone()
+    sel[int(m.parent[first])] = True
+    rep = chip_smoke.partition_report(m, cut._replace(selected=sel), campos)
+    assert rep["off_partition_on_monotone_paths"] > 0
+    with pytest.raises(AssertionError):
+        check_partition(m, cut._replace(selected=sel))
+    broken = m._replace(size=m.size * torch.linspace(0.5, 1.5, m.n_nodes))
+    assert not chip_smoke.merged_cut_matches_chunks(broken, hs_t, campos,
+                                                    0.05)
+
+
+def test_cut_not_a_partition_where_the_metric_rises():
+    """A fault of the JAX package's closed-form cut, which the port
+    reproduces: the metric is size over the distance to the box's
+    circumscribed sphere, which can shrink from a node to its parent (the
+    parent's box is as wide but its sphere is farther).  Then a leaf and
+    its grandparent are both selected (the reference's top-down expansion
+    would stop at the grandparent).  Root 4 over node 2 (leaves 0, 1) and
+    leaf 3; at limit 0.95 from (0, -3, 0) node 2's metric is 1.020 and the
+    root's 0.924: JAX and the port select leaves 0, 1 and the root."""
+    import chip_smoke
+
+    centre = np.array([[-0.5, 0, 0], [0.5, 0, 0], [0, 0, 0], [0, 0.7, 0],
+                       [0, 0.3, 0]], np.float32)
+    half = np.array([[0.5, 0.2, 0.2], [0.5, 0.2, 0.2], [1, 0.2, 0.2],
+                     [0.1, 0.1, 0.1], [1, 0.5, 0.2]], np.float32)
+    topo = dict(parent=np.array([2, 2, 4, 4, -1], np.int32),
+                child_start=np.array([0, 0, 0, 0, 2], np.int32),
+                child_count=np.array([0, 0, 2, 0, 2], np.int32),
+                box_center=centre, box_half=half,
+                size=(2 * half.max(axis=1)).astype(np.float32),
+                anchors=np.zeros(5, bool))
+    h_j = jst.Hierarchy(params=None, skybox_count=0,
+                        **{k: jnp.asarray(v) for k, v in topo.items()})
+    h_t = tst.Hierarchy(params=None, skybox_count=0,
+                        **{k: torch.tensor(v) for k, v in topo.items()})
+    campos = np.array([0.0, -3.0, 0.0], np.float32)
+    cut_j = jst.select_cut(h_j, jnp.asarray(campos), 0.95)
+    cut_t = tst.select_cut(h_t, torch.tensor(campos), 0.95)
+    np.testing.assert_array_equal(cut_t.selected.numpy(),
+                                  np.asarray(cut_j.selected))
+    np.testing.assert_array_equal(cut_t.selected.numpy(),
+                                  [True, True, False, False, True])
+    with pytest.raises(AssertionError):
+        check_partition(h_t, cut_t)
+    rep = chip_smoke.partition_report(h_t, cut_t, torch.tensor(campos))
+    assert rep["off_partition"] == 2
+    assert rep["off_partition_on_monotone_paths"] == 0
