@@ -339,67 +339,70 @@ def start_params(rows, seed: int, dev):
                           opacity_raw=inverse_sigmoid(op)[:, None])
 
 
+def event_spans(targets: dict, run) -> tuple:
+    """Runs ``run()`` with each ``targets`` entry (key -> (owner, attribute
+    name)) wrapped in a pair of CUDA events: (per key the list of its
+    (start, end) events, the run's start event, its end event).  Every
+    attribute is put back after the run."""
+    def ev():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    spans = {k: [] for k in targets}
+    saved = {k: (getattr(o, n), n in vars(o))
+             for k, (o, n) in targets.items()}
+
+    def timed(key):
+        fn = saved[key][0]
+
+        def wrapped(*args, **kw):
+            s = ev()
+            out = fn(*args, **kw)
+            spans[key].append((s, ev()))
+            return out
+        return wrapped
+
+    for k, (o, n) in targets.items():
+        setattr(o, n, timed(k))
+    try:
+        torch.cuda.synchronize()
+        start = ev()
+        run()
+        end = ev()
+        torch.cuda.synchronize()
+    finally:
+        for k, (o, n) in targets.items():
+            fn, own = saved[k]
+            if own:
+                setattr(o, n, fn)
+            else:       # a method of the owner's class
+                delattr(o, n)
+    return spans, start, end
+
+
 def step_stages(step, state, batch, bg, bwd_name: str) -> dict:
     """Device-time split of one training step by CUDA events: set-up,
     forward (render + loss), the backward blend kernel, the slot->row
     reduction, the rest of the backward, and what follows the grads (masks,
     Adam, exposure Adam, densify statistics)."""
     from street_sparse_3dgs_tpu_torch.ops import cuda_blend as cb
-
-    def ev():
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        return e
-
-    spans = {bwd_name: [], "slot_grads_to_rows": []}
-    originals = {k: getattr(cb, k) for k in spans}
-    marks = {}
-
-    def timed(key):
-        def wrapped(*args, **kw):
-            s = ev()
-            out = originals[key](*args, **kw)
-            spans[key].append((s, ev()))
-            return out
-        return wrapped
-
-    fwd, vag = step.forward, step.value_and_grad
-
-    def forward(*args):
-        marks["fwd0"] = ev()
-        out = fwd(*args)
-        marks["fwd1"] = ev()
-        return out
-
-    def value_and_grad(*args):
-        out = vag(*args)
-        marks["bwd1"] = ev()
-        return out
-
-    for k in spans:
-        setattr(cb, k, timed(k))
-    step.forward, step.value_and_grad = forward, value_and_grad
-    torch.cuda.synchronize()
-    marks["start"] = ev()
-    step(state, batch, bg=bg)
-    marks["end"] = ev()
-    torch.cuda.synchronize()
-    for k, fn in originals.items():
-        setattr(cb, k, fn)
-    del step.forward, step.value_and_grad
-
-    def el(a, b):
-        return a.elapsed_time(b)
-
-    kern = sum(el(s, e) for s, e in spans[bwd_name])
-    red = sum(el(s, e) for s, e in spans["slot_grads_to_rows"])
-    bwd = el(marks["fwd1"], marks["bwd1"])
-    return {"setup": el(marks["start"], marks["fwd0"]),
-            "forward": el(marks["fwd0"], marks["fwd1"]),
+    spans, start, end = event_spans(
+        {bwd_name: (cb, bwd_name),
+         "slot_grads_to_rows": (cb, "slot_grads_to_rows"),
+         "forward": (step, "forward"),
+         "value_and_grad": (step, "value_and_grad")},
+        lambda: step(state, batch, bg=bg))
+    fwd0, fwd1 = spans["forward"][-1]
+    bwd1 = spans["value_and_grad"][-1][1]
+    kern = sum(s.elapsed_time(e) for s, e in spans[bwd_name])
+    red = sum(s.elapsed_time(e) for s, e in spans["slot_grads_to_rows"])
+    return {"setup": start.elapsed_time(fwd0),
+            "forward": fwd0.elapsed_time(fwd1),
             bwd_name: kern, "slot_grads_to_rows": red,
-            "backward_rest": bwd - kern - red,
-            "adam_and_stats": el(marks["bwd1"], marks["end"]),
-            "total": el(marks["start"], marks["end"])}
+            "backward_rest": fwd1.elapsed_time(bwd1) - kern - red,
+            "adam_and_stats": bwd1.elapsed_time(end),
+            "total": start.elapsed_time(end)}
 
 
 def train_phase(phase: str, rows, cams, pipe, n_steps: int,
@@ -775,58 +778,31 @@ def merged_cut_matches_chunks(merged, chunks, campos, limit) -> bool:
 def post_step_stages(step, state, batch, limit, eye) -> dict:
     """Device-time split of one post-opt step by CUDA events: the cut, the
     compacted gather and lerp, the rasterizer's forward, the loss, the
-    backward (K4, the raster's slot->row reduction, the gather's backward,
-    the rest), Adam, and what is left of the step."""
+    backward (``torch.autograd.grad``: K4, the raster's slot->row
+    reduction, the gather's backward, the rest), Adam, and what is left of
+    the step (the frozen-row masks, the learning rates, gaps between)."""
     from street_sparse_3dgs_tpu_torch.hierarchy import render as hr
     from street_sparse_3dgs_tpu_torch.models import adam
     from street_sparse_3dgs_tpu_torch.ops import cuda_blend as cb
     from street_sparse_3dgs_tpu_torch.train import losses, post
-
-    def ev():
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        return e
-
-    targets = {"select_cut": (post, "select_cut"),
-               "gather_and_lerp": (hr, "blend_cut_compact"),
-               "rasterize": (hr, "rasterize"),
-               "loss": (losses, "photometric"),
-               "blend_exact_bwd": (cb, "blend_exact_bwd"),
-               "slot_grads_to_rows": (cb, "slot_grads_to_rows"),
-               "gather_backward": (hr, "slot_grads_to_rows"),
-               "adam": (adam, "step")}
-    originals = {k: getattr(m, n) for k, (m, n) in targets.items()}
-    spans = {k: [] for k in targets}
-
-    def timed(key):
-        fn = originals[key]
-
-        def wrapped(*args, **kw):
-            s = ev()
-            out = fn(*args, **kw)
-            spans[key].append((s, ev()))
-            return out
-        return wrapped
-
-    for k, (m, n) in targets.items():
-        setattr(m, n, timed(k))
-    try:
-        torch.cuda.synchronize()
-        start = ev()
-        step(state, batch, limit, eye)
-        end = ev()
-        torch.cuda.synchronize()
-    finally:
-        for k, (m, n) in targets.items():
-            setattr(m, n, originals[k])
-    ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
-    backward = spans["loss"][-1][1].elapsed_time(spans["adam"][0][0])
-    ms["backward_rest"] = backward - ms["blend_exact_bwd"] - \
+    parts = ("select_cut", "gather_and_lerp", "rasterize", "loss",
+             "backward", "adam")
+    spans, start, end = event_spans(
+        {"select_cut": (post, "select_cut"),
+         "gather_and_lerp": (hr, "blend_cut_compact"),
+         "rasterize": (hr, "rasterize"),
+         "loss": (losses, "photometric"),
+         "backward": (torch.autograd, "grad"),
+         "blend_exact_bwd": (cb, "blend_exact_bwd"),
+         "slot_grads_to_rows": (cb, "slot_grads_to_rows"),
+         "gather_backward": (hr, "slot_grads_to_rows"),
+         "adam": (adam, "step")},
+        lambda: step(state, batch, limit, eye))
+    ms = {k: sum(s.elapsed_time(e) for s, e in v) for k, v in spans.items()}
+    ms["backward_rest"] = ms["backward"] - ms["blend_exact_bwd"] - \
         ms["slot_grads_to_rows"] - ms["gather_backward"]
     ms["total"] = start.elapsed_time(end)
-    ms["other"] = ms["total"] - backward - sum(
-        ms[k] for k in ("select_cut", "gather_and_lerp", "rasterize", "loss",
-                        "adam"))
+    ms["other"] = ms["total"] - sum(ms[k] for k in parts)
     return ms
 
 
@@ -1188,13 +1164,16 @@ def merge_eval(dev, chunks, project: Path, pipe, campos) -> dict:
     optimised chunk 0 and chunk 1 (one node more than the chunks, one root;
     the cut from ``campos`` at limits 0, 0.05 and 1e9 each chunk's own cut
     and, by ``partition_report``, a partition at 0 and 1e9 and at 0.05 on
-    every path where the metric is monotone; a ``.hier.npz`` round trip),
+    every path where the metric is monotone, with no leaf off the
+    partition but those off it in the chunks' own trees; a ``.hier.npz``
+    round trip),
     then ``render_hierarchy_eval`` of the merged tree on the test view of
     phase post_opt's project at TAUS with LPIPS (launches
     counted; TF32 switched on before it and off after; every metric finite,
     tau 0's PSNR at least PSNR_TAU0_MIN, tau 15's no higher than tau 0's)
     and one ``render_position`` call at tau 0, shifted, its PNGs written.
-    Returns {"launches"}."""
+    Returns {"launches", "calls"}: each tau's K3 and K5 (args, result), for
+    the kernels phase to hold against the plain versions."""
     import numpy as np
 
     from street_sparse_3dgs_tpu_torch import native
@@ -1210,6 +1189,8 @@ def merge_eval(dev, chunks, project: Path, pipe, campos) -> dict:
     from street_sparse_3dgs_tpu_torch.hierarchy.merge import (
         merge_hierarchies)
     from street_sparse_3dgs_tpu_torch.hierarchy.structure import select_cut
+    from street_sparse_3dgs_tpu_torch.ops import binning
+    from street_sparse_3dgs_tpu_torch.ops import cuda_blend as cb
     t0 = time.perf_counter()
     out_root = ROOT / "build" / "smoke" / "merge_eval"
     shutil.rmtree(out_root, ignore_errors=True)
@@ -1229,10 +1210,11 @@ def merge_eval(dev, chunks, project: Path, pipe, campos) -> dict:
                          for h in chunks]
         partition[f"{lim:g}"] = rep
         # A partition at the extremes; in between, wherever the metric is
-        # monotone along the path (PERF.md §6), and the chunks' cuts
-        # kept node for node.
+        # monotone along the path (PERF.md §6), the chunks' cuts kept node
+        # for node, and no leaf off the partition but the chunks' own.
         if (rep["off_partition"] if lim in (0.0, 1e9)
                 else rep["off_partition_on_monotone_paths"]) or \
+                rep["off_partition"] != sum(rep["chunks"]) or \
                 not merged_cut_matches_chunks(merged, chunks, campos, lim):
             raise AssertionError(f"merge_eval: the cut at limit {lim}: "
                                  f"{rep}")
@@ -1254,7 +1236,10 @@ def merge_eval(dev, chunks, project: Path, pipe, campos) -> dict:
     native.reset_launches()
     s0 = time.perf_counter()
     # The eval's per-tau lines go to stderr: stdout holds the JSON lines.
-    with contextlib.redirect_stdout(sys.stderr):
+    # Every tau's K3 and K5 call is kept for the kernels phase.
+    with contextlib.redirect_stdout(sys.stderr), \
+            Recorder(cb, "blend_exact") as k3, \
+            Recorder(binning, "slab_gather") as k5:
         res = render_hierarchy_eval(merged, str(project), cfg, pipe,
                                     taus=TAUS, out_dir=out_root,
                                     with_lpips=True, with_breakdowns=True)
@@ -1309,7 +1294,8 @@ def merge_eval(dev, chunks, project: Path, pipe, campos) -> dict:
           "position_shift_m": POSITION_SHIFT,
           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
           "launches": launches})
-    return {"launches": launches}
+    return {"launches": launches,
+            "calls": {"blend_exact": k3.calls, "slab_gather": k5.calls}}
 
 
 def grads_small(dev) -> dict:
@@ -2202,6 +2188,30 @@ def main() -> int:
             "max_abs_err": cmp["max_abs_err"], "live_slots": live,
             "tiles": args[3].shape[0], **walk}
 
+    # K3 at the merge_eval shapes (the merged tree's compacted cut of the
+    # test view, 1920x1088): every tau held against the plain version, tau
+    # 0 (the deepest cut) timed.
+    calls = merge_rec["calls"]["blend_exact"]
+    per_tau = []
+    for tau, (args, out) in zip(TAUS, calls, strict=True):
+        cmp = compare_blend(out, cb.blend_exact_plain(*args))
+        check_blend(f"K3 at merge_eval tau {tau:g}", cmp, strict=False)
+        per_tau.append({"tau": tau, "max_abs_err": cmp["max_abs_err"],
+                        "flips": cmp["flips"],
+                        "pixels_over_atol": cmp["pixels_over_atol"],
+                        "tiles": args[3].shape[0]})
+    args, out = calls[0]
+    b_ms, b_by, live, walk = fwd_bound(args, out, True, sfu_rate)
+    next(k for k in kernels if k["name"] == "K3 blend_exact")[
+        "at_merge_eval"] = {
+        "ms": device_ms(lambda: cb.blend_exact(*args), 20),
+        "wall_ms": event_ms(lambda: cb.blend_exact(*args), 20),
+        "plain_ms": event_ms(lambda: cb.blend_exact_plain(*args), 2),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "max_abs_err": max(r["max_abs_err"] for r in per_tau),
+        "timed": "tau 0", "live_slots": live, **walk, "per_tau": per_tau}
+    del calls, args, out
+
     def k5_timing(k5_args, k5_out) -> dict:
         """K5 on a recorded call: device and wall ms, the plain version's,
         the byte bound (live keys read, starts and counts, the table
@@ -2229,9 +2239,17 @@ def main() -> int:
 
     k5 = k5_timing(ex["k5"], ex["k5_out"])
     k5_post = k5_timing(*post_rec["calls"]["slab_gather"])
-    if k5["max_abs_err"] or k5_post["max_abs_err"]:
+    k5_calls = merge_rec["calls"]["slab_gather"]
+    if len(k5_calls) != len(TAUS):
+        raise AssertionError(f"K5: {len(k5_calls)} calls in merge_eval")
+    k5_merge = k5_timing(*k5_calls[0])
+    k5_merge["timed"] = "tau 0"
+    k5_merge["max_abs_err"] = max(float((o - binning.slab_gather_plain(
+        *a)).abs().max()) for a, o in k5_calls)
+    if k5["max_abs_err"] or k5_post["max_abs_err"] or \
+            k5_merge["max_abs_err"]:
         raise AssertionError("K5: kernel table differs from plain")
-    del post_rec
+    del post_rec, merge_rec, k5_calls
     kernels.append({
         "name": "K5 slab_gather", "route": "cuda",
         "source": "street_sparse_3dgs_tpu_torch/csrc/slab_gather.cu",
@@ -2241,7 +2259,7 @@ def main() -> int:
                               + launches_hier["slab_gather"])
         / (n_renders["slab_gather"] * (1 + TIMED_RUNS)),
         "tolerance": "exactly equal", **k5, "shapes": "street view 0",
-        "at_post_opt": k5_post})
+        "at_post_opt": k5_post, "at_merge_eval": k5_merge})
     # D1-D3 at the street shapes of the kernel_floor phase: the headline
     # variant (level 2; D3 one tile a block) and every variant beside it.
     for probe, replaces in (("D1", "tools/kernel_floor_tpu.py:40"),

@@ -9,8 +9,8 @@ Weights resolve in priority order:
 
 1. an ``.npz`` bundle already on disk (``LPIPS_WEIGHTS`` env var, explicit
    path argument, or ``~/.cache/street_sparse_3dgs_tpu/lpips_vgg.npz``) —
-   the JAX package's format, made from the official torch checkpoints by
-   :func:`convert_torch_checkpoints`.  Nothing is fetched;
+   the JAX package's format (``lpips_jax.convert_torch_checkpoints`` makes
+   it from the official torch checkpoints).  Nothing is fetched;
 2. the documented fallback: He-initialized conv filters drawn with numpy
    from a fixed seed (the same weights as the JAX package's) and uniform
    lin weights.  Random-feature distances are stable for *relative*
@@ -94,35 +94,6 @@ def weights_kind(path: str | None = None) -> str:
 def _device_weights(path: str | None, device: torch.device) -> dict:
     return {k: torch.as_tensor(v, device=device)
             for k, v in load_weights(path).items() if k != "kind"}
-
-
-def convert_torch_checkpoints(vgg_state_path: str | Path,
-                              lin_state_path: str | Path,
-                              out_path: str | Path | None = None) -> Path:
-    """Convert official checkpoints already on disk to the ``.npz`` bundle.
-
-    ``vgg_state_path``: torchvision ``vgg16-*.pth`` state dict
-    (``features.N.weight/bias``); ``lin_state_path``: the lpips package's
-    ``vgg.pth`` lin layers (``lin{k}.model.1.weight`` [1,C,1,1])."""
-    vgg = torch.load(vgg_state_path, map_location="cpu", weights_only=True)
-    lin = torch.load(lin_state_path, map_location="cpu", weights_only=True)
-    out: dict[str, np.ndarray] = {"kind": np.array("calibrated")}
-    # torchvision features module indices of the 13 conv layers:
-    tv_idx = [0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28]
-    for i, t in enumerate(tv_idx):
-        out[f"conv{i}_w"] = vgg[f"features.{t}.weight"].numpy()
-        out[f"conv{i}_b"] = vgg[f"features.{t}.bias"].numpy()
-    for lvl in range(5):
-        key = (f"lin{lvl}.model.1.weight"
-               if f"lin{lvl}.model.1.weight" in lin
-               else f"lins.{lvl}.model.1.weight")
-        out[f"lin{lvl}"] = np.maximum(lin[key].numpy().reshape(-1), 0.0)
-    dest = Path(out_path) if out_path else _DEFAULT_CACHE.expanduser()
-    dest.parent.mkdir(parents=True, exist_ok=True)
-    np.savez(dest, **out)
-    load_weights.cache_clear()
-    _device_weights.cache_clear()
-    return dest
 
 
 def _features(x: torch.Tensor, w: dict) -> list[torch.Tensor]:
