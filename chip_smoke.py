@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Drives the port's forward LOD render path, its training path, its
-street-scale tools path and its hierarchy back end (post-optimization,
-merge, evaluation) on the card and holds every hand-written kernel against
-its plain PyTorch version:
+street-scale tools path, its hierarchy back end (post-optimization,
+merge, evaluation) and its command line (the five-stage ``full-train``,
+``render-hierarchy``, the live viewer) on the card and holds every
+hand-written kernel against its plain PyTorch version:
 
 1. build   — compile ``street_sparse_3dgs_tpu_torch/csrc/*.cu`` (one nvcc per
              source, in parallel) into the ignored ``build/kernels/``;
@@ -76,8 +77,24 @@ its plain PyTorch version:
              path; ``.hier.npz`` round trip), the tau sweep ``render_hierarchy_eval`` on the project's test view with
              LPIPS (K5, K3; TF32 off, finite metrics, tau 0 PSNR >= 25 dB)
              and one ``render_position`` call;
-14. kernels_street — K1-K5 timed at the shapes of phases 4, 8, 9, and K3,
-             K4 at those of phases 11 and 12, K1 at phase 9's, K2 at phase
+14. full_train — the command line over a two-chunk project at full width
+             (``write_chunked_project``: phase post_opt's 4 views, PNGs and
+             cameras, masks over the GT's empty sky; the 1M rows as the
+             aligned cloud, each chunk its half at the median x):
+             ``cli.main(["full-train", ...])`` in the production exact
+             counts config (K5, K3, K4) with the budgets the autosizer
+             measures on the coarse stage's initial rows, depth cut to
+             FT_COARSE / FT_CHUNK / FT_POST steps; ``render-hierarchy`` of
+             the merged tree at tau {0, 3, 6, 15} with LPIPS; a rerun that
+             skips every stage; ``python -m street_sparse_3dgs_tpu_torch.cli
+             render-hierarchy`` in a subprocess; ``train-single`` with the
+             live viewer on while a client asks for 1920x1088 frames, and
+             ``ViewerHook`` on its saved state against the plain render;
+             each stage's first K3, K4 and K5 call held against its plain
+             version when the stage ends, chunk 0's training calls kept
+             for phase 15;
+15. kernels_street — K1-K5 timed at the shapes of phases 4, 8, 9, and K3,
+             K4 at those of phases 11, 12 and 14, K1 at phase 9's, K2 at phase
              10's:
              ``ms`` is device time (``profiling.device_ms``), ``wall_ms``
              the events around back-to-back calls, host cost included; K2
@@ -88,9 +105,9 @@ its plain PyTorch version:
              warp-slots where a pixel passes the alpha test, from which
              the bound is counted; K3 also deepest first, and against the
              split's plain twin;
-15. the kernels line (launches counted on phases 4, 5, 7, 8, 9, 10, 11,
-             12 and 13 only, error against the plain version, times, bound)
-             and the device line.
+16. the kernels line (launches counted on phases 4, 5, 7, 8, 9, 10, 11,
+             12, 13 and 14 only, error against the plain version, times,
+             bound) and the device line.
 
 Every phase prints one JSON line.  Any failure raises and exits nonzero.
 Without a CUDA card it exits 1 before printing any result.
@@ -104,6 +121,7 @@ import math
 import shutil
 import statistics
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -146,6 +164,20 @@ COMPACT_GRAD_BAR, COMPACT_GRAD_RTOL = 5e-4, 2e-3
 PSNR_TAU0_MIN = 25.0             # merge_eval: the GT is tau 0 of these rows
 POSITION_SHIFT = 2.0             # metres along x for render_position
 K5_EDGE_KS = (128, 384, 1024, 100)
+# full_train: steps of the coarse, chunk and post stages (densify rounds at
+# FT_DENSIFY), of the viewer's train-single run, the frames its client asks
+# for, and the least tau 0 PSNR of the partial run.
+FT_COARSE, FT_CHUNK, FT_DENSIFY, FT_POST = 60, 90, (30, 60), 20
+FT_VIEWER_STEPS, FT_FRAMES, FT_PSNR_MIN = 20, 3, 5.0
+# The project's GT has no sky (the renders' background is black), so no
+# skybox dome (full-train's default is 100,000 rows, far wider on screen
+# than the scene: their pairs overflow the post steps' windows).  The
+# emission ladder and window budget are the autosizer's for the coarse
+# stage's initial rows (kNN scales, far wider than the street scene's own),
+# with FT_MARGIN headroom for the chunk trees (ring, own rows, densified):
+# the post stage cannot grow a budget.
+FT_SKYBOX, FT_MARGIN = 0, 2.0
+FT_TIMED = "chunk_0_0_train"     # the stage whose first calls are timed
 
 
 def emit(obj) -> None:
@@ -1298,6 +1330,612 @@ def merge_eval(dev, chunks, project: Path, pipe, campos) -> dict:
             "calls": {"blend_exact": k3.calls, "slab_gather": k5.calls}}
 
 
+# ---- phase full_train: the CLI over a two-chunk project -------------------
+
+def wire_matrices(cam) -> tuple:
+    """The SIBR viewer's row-vector view and view-projection matrices of a
+    renderer camera (``network_gui``'s y/z column flip undone)."""
+    out = []
+    for m in (cam.viewmatrix, cam.projmatrix):
+        m = m.detach().cpu().double().clone()
+        m[1:3] = -m[1:3]
+        out.append(m.T.float().numpy())
+    return tuple(out)
+
+
+def viewer_client(port: int, cam, frames: int, result: dict) -> None:
+    """A SIBR remote-viewer client: connects to ``port`` (retrying while
+    the trainer loads its scene), asks for ``frames`` RGB frames of ``cam``
+    one after another (the reply latency of each on the host clock), reads
+    each frame and the verify string, then disconnects."""
+    import numpy as np
+    import socket
+    view, proj = wire_matrices(cam)
+    fovx = 2 * math.atan(float(cam.tan_fovx))
+    fovy = 2 * math.atan(float(cam.tan_fovy))
+    body = json.dumps({
+        "resolution_x": cam.width, "resolution_y": cam.height,
+        "train": True, "fov_y": fovy, "fov_x": fovx, "z_near": 0.01,
+        "z_far": 100.0, "shs_python": False, "rot_scale_python": False,
+        "keep_alive": True, "scaling_modifier": 1.0,
+        "view_matrix": view.flatten().tolist(),
+        "view_projection_matrix": proj.flatten().tolist()}).encode()
+    msg = len(body).to_bytes(4, "little") + body
+    deadline = time.monotonic() + 600
+    sock = None
+    while sock is None and time.monotonic() < deadline:
+        try:
+            sock = socket.create_connection(("127.0.0.1", port), timeout=5)
+        except OSError:
+            time.sleep(0.05)
+    if sock is None:
+        result["error"] = "no listener"
+        return
+
+    def recv(n):
+        buf = bytearray()
+        while len(buf) < n:
+            part = sock.recv(n - len(buf))
+            if not part:
+                raise ConnectionError("viewer closed")
+            buf += part
+        return bytes(buf)
+
+    result["frames"], result["latency_ms"] = [], []
+    try:
+        sock.settimeout(300)
+        for _ in range(frames):
+            t0 = time.perf_counter()
+            sock.sendall(msg)
+            img = np.frombuffer(recv(cam.height * cam.width * 3), np.uint8)
+            n = int.from_bytes(recv(4), "little")
+            result["verify"] = recv(n).decode()
+            result["latency_ms"].append((time.perf_counter() - t0) * 1e3)
+            result["frames"].append(img.reshape(cam.height, cam.width, 3))
+    except OSError as exc:            # ConnectionError included
+        result["error"] = repr(exc)
+    finally:
+        sock.close()
+
+
+class _OneRequest:
+    """Stands in for ``NetworkGUI`` when ``ViewerHook`` is called outside a
+    training loop: its poll renders one request and keeps the frame."""
+
+    def __init__(self, req):
+        self.req, self.frame = req, None
+
+    def poll(self, render_fn, source_path, training_done=False):
+        self.frame = render_fn(self.req)
+        return True
+
+
+def write_chunked_project(root: Path, scene, post_project: Path) -> dict:
+    """The two-chunk project of ``pipeline.full_train``: the cameras
+    (``cameras.bin``, ``images.bin``; data/colmap), the GT PNGs, the 16-bit
+    inverse depths with depth_params.json (data/png) and test.txt of phase
+    post_opt's project, copied; ``rectified/masks`` (``<image>.png``, 255
+    where the GT has content and 0 over its empty sky, which no row of the
+    scene covers, so that the training loss does not score the random
+    background there); ``aligned/sparse/0`` with the street
+    scene's N_ROWS rows as points3D.ply (colours from the SH DC band), and
+    ``chunks/{0_0,1_0}`` with the rows on either side of the median x,
+    each with center.txt and extent.txt (the middle and size of its rows'
+    box).  Returns the chunks' row counts."""
+    import numpy as np
+
+    from street_sparse_3dgs_tpu_torch.data import png
+    from street_sparse_3dgs_tpu_torch.data.ply import store_point_cloud
+    shutil.rmtree(root, ignore_errors=True)
+    rect = root / "rectified"
+    rect.mkdir(parents=True)
+    shutil.copytree(post_project / "images", rect / "images")
+    shutil.copytree(post_project / "depths", rect / "depths")
+    (rect / "masks").mkdir()
+    for f in sorted((rect / "images").glob("*.png")):
+        gt = np.asarray(png.read_image(f))
+        png.write_png(rect / "masks" / f"{f.name}.png",
+                      np.where(gt.max(axis=-1) > 0, 255, 0).astype(np.uint8))
+    xyz = scene.means3d.cpu().double().numpy()
+    rgb = (torch.clamp(0.5 + 0.28209479177387814 * scene.sh_coeffs[:, 0],
+                       0, 1) * 255).to(torch.uint8).cpu().numpy()
+    x = scene.means3d[:, 0]
+    side = (x >= torch.median(x)).cpu().numpy()
+    calib = root / "camera_calibration"
+    sets = {calib / "aligned": slice(None),
+            calib / "chunks" / "0_0": ~side, calib / "chunks" / "1_0": side}
+    rows = {}
+    for d, sel in sets.items():
+        sparse = d / "sparse" / "0"
+        sparse.mkdir(parents=True)
+        for f in ("cameras.bin", "images.bin", "depth_params.json",
+                  "test.txt"):
+            shutil.copy(post_project / "sparse" / "0" / f, sparse / f)
+        store_point_cloud(sparse / "points3D.ply", xyz[sel], rgb[sel])
+        rows[d.name] = int(xyz[sel].shape[0])
+        if d.parent.name == "chunks":
+            lo, hi = xyz[sel].min(axis=0), xyz[sel].max(axis=0)
+            (d / "center.txt").write_text(
+                " ".join(f"{v:.6f}" for v in (lo + hi) / 2) + "\n")
+            (d / "extent.txt").write_text(
+                " ".join(f"{v:.6f}" for v in hi - lo) + "\n")
+    return rows
+
+
+def held_against_plain(stage: str, key: str, args, out) -> dict:
+    """One recorded K3, K4 or K5 call of a full_train stage against its
+    plain version: K3 at the image bar with the flip share, K4 at GRAD_BAR
+    x max|g| per channel, K5 exactly.  Raises past the bar."""
+    from street_sparse_3dgs_tpu_torch.ops import binning
+    from street_sparse_3dgs_tpu_torch.ops import cuda_blend as cb
+    row = {"stage": stage, "tiles": args[1].shape[0]
+           if key == "slab_gather" else args[3].shape[0]}
+    if key == "blend_exact":
+        cmp = compare_blend(out, cb.blend_exact_plain(*args))
+        check_blend(f"K3 at full_train {stage}", cmp, strict=False)
+        row.update(max_abs_err=cmp["max_abs_err"], flips=cmp["flips"],
+                   pixels_over_atol=cmp["pixels_over_atol"])
+    elif key == "blend_exact_bwd":
+        cmp = compare_grads(f"K4 at full_train {stage}", out,
+                            cb.blend_exact_bwd_plain(*args), 2)
+        row.update(max_abs_err=cmp["max_abs_err"],
+                   max_scaled_err=cmp["max_scaled_err"])
+    else:
+        row["max_abs_err"] = float((out - binning.slab_gather_plain(
+            *args)).abs().max())
+        if row["max_abs_err"]:
+            raise AssertionError(f"K5 at full_train {stage}: table differs "
+                                 "from plain")
+    return row
+
+
+@contextlib.contextmanager
+def stage_probes(stages: dict, keep: tuple = ()):
+    """While the block runs, every ``stage_timer`` stage (and every
+    ``manual`` stage the caller opens with ``stages["open"](name)``) gets:
+    its launches (a difference of ``native.LAUNCHES``), the first K3, K4
+    and K5 call (``Recorder(first_only=True)``) held against its plain
+    version when the stage ends (``held_against_plain``; the calls
+    themselves kept only for the stages in ``keep``, so that the device
+    holds one stage's inputs at a time), the ms of each synchronised train
+    or post step (host clock), the post steps' summed ``tile_overflow``,
+    and the train loop's stats, meta and the device memory peak.
+    ``stages`` maps each stage's name to that record."""
+    from street_sparse_3dgs_tpu_torch import native, utils
+    from street_sparse_3dgs_tpu_torch.ops import binning
+    from street_sparse_3dgs_tpu_torch.ops import cuda_blend as cb
+    from street_sparse_3dgs_tpu_torch.pipeline import full_train as ft
+    from street_sparse_3dgs_tpu_torch.train import post, step
+    current = []
+
+    @contextlib.contextmanager
+    def probe(name):
+        rec = stages.setdefault(name, {"step_ms": [], "loops": []})
+        before = dict(native.LAUNCHES)
+        torch.cuda.reset_peak_memory_stats()
+        current.append(rec)
+        try:
+            with Recorder(cb, "blend_exact", first_only=True) as k3, \
+                    Recorder(cb, "blend_exact_bwd", first_only=True) as k4, \
+                    Recorder(binning, "slab_gather", first_only=True) as k5:
+                yield
+            torch.cuda.synchronize()
+        finally:
+            current.pop()
+        rec["launches"] = {k: native.LAUNCHES[k] - before[k]
+                           for k in before if native.LAUNCHES[k] > before[k]}
+        rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        calls = {r.name: r.calls[0] for r in (k3, k4, k5) if r.calls}
+        del k3, k4, k5
+        s0 = time.perf_counter()
+        rec["checks"] = {key: held_against_plain(name, key, *call)
+                         for key, call in calls.items()}
+        rec["check_seconds"] = time.perf_counter() - s0
+        if name in keep:
+            rec["calls"] = calls
+
+    real_timer = utils.stage_timer
+
+    @contextlib.contextmanager
+    def timer(name, *a, **k):
+        with probe(name), real_timer(name, *a, **k):
+            yield
+
+    def timed(fn):
+        def wrapped(self, *a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(self, *a, **k)
+            torch.cuda.synchronize()
+            if current:
+                current[-1]["step_ms"].append((time.perf_counter() - t0)
+                                              * 1e3)
+            return out
+        return wrapped
+
+    real_loop, real_cut = ft.train_loop, post.render_cut_compacted
+
+    def loop(state, meta, *a, **k):
+        out = real_loop(state, meta, *a, **k)
+        if current:
+            current[-1]["loops"].append({"start_capacity": meta.capacity,
+                                         "meta": out[1], "stats": out[2]})
+        return out
+
+    def cut(*a, **k):
+        out = real_cut(*a, **k)
+        if current:
+            rec = current[-1]
+            rec["post_tile_overflow"] = rec.get(
+                "post_tile_overflow", 0) + out["tile_overflow"]
+        return out
+
+    saved = [(step.TrainStep, "__call__", step.TrainStep.__call__),
+             (post.PostStep, "__call__", post.PostStep.__call__)]
+    utils.stage_timer, ft.train_loop = timer, loop
+    post.render_cut_compacted = cut
+    for owner, name, fn in saved:
+        setattr(owner, name, timed(fn))
+    stages["open"] = probe
+    try:
+        yield stages
+    finally:
+        utils.stage_timer, ft.train_loop = real_timer, real_loop
+        post.render_cut_compacted = real_cut
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+        stages.pop("open")
+
+
+def ft_budgets(dev, scene, pipe):
+    """``pipe`` (the production exact counts config) with the emission
+    ladder and window budget that ``ops/autosize`` measures for the coarse
+    stage's initial rows (``create_from_pcd`` on the street scene's rows:
+    kNN scales, opacity 0.1) over the 4 views, with FT_MARGIN headroom, and
+    the autosizer's report."""
+    import dataclasses
+
+    from street_sparse_3dgs_tpu_torch.models.gaussians import (
+        activate_opacity, activate_scales, create_from_pcd, sh_coeffs)
+    from street_sparse_3dgs_tpu_torch.ops.autosize import autosize_raster
+    t0 = time.perf_counter()
+    rows = scene.means3d
+    params, active, meta = create_from_pcd(
+        rows, torch.full_like(rows, 0.5), sh_degree=3,
+        capacity=rows.shape[0])
+    knobs = autosize_raster(
+        params.xyz, activate_scales(params), params.quats,
+        activate_opacity(params, meta), sh_coeffs(params), scene.cameras,
+        3, HEIGHT, WIDTH, pipe.tile_capacity, max_dup=0, margin=FT_MARGIN,
+        active_mask=active, scan_cap_max=256)
+    torch.cuda.synchronize()
+    del params, active
+    report = {**knobs._asdict(), "margin": FT_MARGIN,
+              "seconds": time.perf_counter() - t0}
+    return dataclasses.replace(
+        pipe, max_dup=knobs.max_dup, dup_overscan=knobs.dup_overscan,
+        dup_tails=knobs.dup_tails, exact_extra=knobs.exact_extra), report
+
+
+def full_train_phase(dev, scene, post_project: Path, pipe) -> dict:
+    """The five stages through the command line at full width: a two-chunk
+    project (``write_chunked_project``: 4 street views at 1920x1088, view 3
+    held out, the street scene's N_ROWS rows as the aligned cloud, each
+    chunk its half) and ``cli.main(["full-train", ...])`` in the production
+    exact counts config (``--raster_method pallas``, as phase post_opt,
+    with the budgets of ``ft_budgets`` and FT_SKYBOX skybox rows),
+    ``--resolution 1 --eval --seed 0 --disable_viewer --skip_if_exists``,
+    depth cut to FT_COARSE / FT_CHUNK (densifying at FT_DENSIFY) /
+    FT_POST steps by wrapping ``pipeline.full_train.full_train`` (the
+    command takes no per-stage iteration flags).  Then
+    ``render-hierarchy`` of ``merged.hier.npz`` on the held-out view at
+    TAUS with LPIPS; a second ``full-train`` that must skip every stage and
+    return the merged tree; one ``python -m
+    street_sparse_3dgs_tpu_torch.cli render-hierarchy`` in a subprocess;
+    ``train-single`` on chunk 0 for FT_VIEWER_STEPS steps with the viewer on
+    (a free port) while a client thread asks for FT_FRAMES 1920x1088 frames;
+    ``ViewerHook`` on its saved state against the plain render.  Fails
+    unless every artifact exists, the timing log names the eight stages,
+    each training stage's loss is finite and falls, the production steps
+    show no tile overflow or skipped update (unless a budget grew), the
+    merged tree has one root and the chunks' nodes plus one, tau 0's PSNR
+    is finite and above FT_PSNR_MIN, tau 15's at most tau 0's, the rerun
+    skips everything, the client got its frames, K3, K4 and K5 ran in
+    every training and post stage, and each stage's first K3, K4 and K5
+    call agrees with its plain version (``stage_probes``).  Returns
+    {"launches", "checks" (those comparisons by stage), "timed" (the first
+    calls of stage FT_TIMED, which phase 15 times)}."""
+    import dataclasses
+    import io
+    import subprocess
+
+    import numpy as np
+
+    from street_sparse_3dgs_tpu_torch import cli, native
+    from street_sparse_3dgs_tpu_torch.hierarchy.structure import (
+        pixel_limit, select_cut)
+    from street_sparse_3dgs_tpu_torch.models.gaussians import (
+        GaussianMeta, activate_opacity, activate_scales, sh_coeffs)
+    from street_sparse_3dgs_tpu_torch.models.serialize import load_scene_ply
+    from street_sparse_3dgs_tpu_torch.pipeline import full_train as ft
+    from street_sparse_3dgs_tpu_torch.train.step import (init_state,
+                                                         raster_config)
+    from street_sparse_3dgs_tpu_torch.viewer.hook import ViewerHook
+    from street_sparse_3dgs_tpu_torch.viewer.network_gui import (
+        ViewerRequest)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    root = ROOT / "build" / "smoke" / "ft_project"
+    rows = write_chunked_project(root, scene, post_project)
+    write_s = time.perf_counter() - t0
+    paths = ft.ProjectPaths(root)
+    pipe, budgets = ft_budgets(dev, scene, pipe)
+    tails = ",".join(f"{b}:{w}" for b, w in pipe.dup_tails)
+    flags = ["--raster_method", "pallas", "--max_dup", str(pipe.max_dup),
+             "--tile_capacity", str(pipe.tile_capacity), "--dup_overscan",
+             str(pipe.dup_overscan), "--dup_tails", tails, "--exact_extra",
+             str(pipe.exact_extra), "--grad_reduce", pipe.grad_reduce,
+             "--grad_sort", pipe.grad_sort, "--resolution", "1", "--eval",
+             "--seed", "0", "--device", dev.type]
+    densify = ["--densify_from_iter", str(FT_DENSIFY[0] - 1),
+               "--densification_interval", str(FT_DENSIFY[0]),
+               "--densify_until_iter", str(FT_DENSIFY[-1] + 1)]
+    argv = ["full-train", "--project_dir", str(root), "--disable_viewer",
+            "--skip_if_exists", "--skybox_num_override", str(FT_SKYBOX),
+            "--iterations", str(FT_CHUNK), *densify, *flags]
+    real_run = ft.full_train
+    returned = []
+
+    def cut_depth(*a, **k):
+        returned.append(real_run(*a, **{**k, "coarse_iterations": FT_COARSE,
+                                        "chunk_iterations": FT_CHUNK,
+                                        "post_iterations": FT_POST}))
+        return returned[-1]
+
+    stages = {}
+    native.reset_launches()
+    ft.full_train = cut_depth
+    try:
+        with stage_probes(stages, keep=(FT_TIMED,)) as probe, \
+                contextlib.redirect_stdout(sys.stderr):
+            s0 = time.perf_counter()
+            if cli.main(argv) != 0:
+                raise AssertionError("full_train: full-train returned nonzero")
+            run_s = time.perf_counter() - s0
+
+            # The tau sweep of the merged tree on the held-out view.
+            s0 = time.perf_counter()
+            eval_dir = root / "output" / "eval"
+            with probe["open"]("render_hierarchy"):
+                rc = cli.main([
+                    "render-hierarchy", "--hierarchy",
+                    str(paths.output_dir / "merged.hier.npz"), "-s",
+                    str(paths.colmap_dir), "--images", str(paths.images_dir),
+                    "--depths", str(paths.depths_dir), "--model_path",
+                    str(eval_dir), "--taus", *[f"{t:g}" for t in TAUS],
+                    *flags])
+            if rc != 0:
+                raise AssertionError("full_train: render-hierarchy failed")
+            eval_s = time.perf_counter() - s0
+
+            # The rerun: every stage skipped, the merged tree returned.
+            log = paths.output_dir / "training_pipeline_timing.txt"
+            logged = log.read_text().splitlines()
+            stamp = (paths.output_dir / "merged.hier.npz").stat().st_mtime_ns
+            buf = io.StringIO()
+            s0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                if cli.main(argv) != 0:
+                    raise AssertionError("full_train: the rerun failed")
+            rerun_s = time.perf_counter() - s0
+            rerun_out = buf.getvalue()
+            print(rerun_out, file=sys.stderr)
+    finally:
+        ft.full_train = real_run
+    launches = dict(native.LAUNCHES)
+    merged = returned[-1]
+    again = log.read_text().splitlines()[len(logged):]
+    if not ("Skipping coarse" in rerun_out
+            and all(f"Skipping chunk {c}" in rerun_out for c in ("0_0", "1_0"))
+            and "== Stage 2" not in rerun_out
+            and [ln.split(":")[0] for ln in again] == ["consolidation"]
+            and (paths.output_dir / "merged.hier.npz").stat().st_mtime_ns
+            == stamp and merged is not None):
+        raise AssertionError(f"full_train: the rerun did not skip: "
+                             f"{rerun_out!r} {again}")
+
+    # Artifacts, the timing log, the merged tree.
+    want = [paths.scaffold_dir / "point_cloud" / f"iteration_{FT_COARSE}",
+            paths.output_dir / "merged.hier.npz", eval_dir / "results.json"]
+    for c in ("0_0", "1_0"):
+        out = paths.trained_chunks_dir / c
+        want += [out / "point_cloud" / f"iteration_{FT_CHUNK}",
+                 out / "hierarchy.hier.npz", out / "hierarchy.hier_opt.npz",
+                 out / "exposure.json"]
+    missing = [str(p) for p in want if not p.exists()]
+    if missing:
+        raise AssertionError(f"full_train: missing {missing}")
+    timing = {ln.split(":")[0]: float(ln.split(":")[1].split()[0])
+              for ln in logged}
+    names = ["coarse"] + [f"chunk_{c}_{s}" for c in ("0_0", "1_0")
+                          for s in ("train", "hierarchy", "post")] + [
+        "consolidation"]
+    if [ln.split(":")[0] for ln in logged] != names:
+        raise AssertionError(f"full_train: timing log {logged}")
+    chunk_nodes = []
+    for c in ("0_0", "1_0"):
+        with np.load(paths.trained_chunks_dir / c /
+                     "hierarchy.hier_opt.npz") as z:
+            chunk_nodes.append(int(z["parent"].shape[0]))
+    roots = int((merged.parent < 0).sum())
+    if merged.n_nodes != sum(chunk_nodes) + 1 or roots != 1:
+        raise AssertionError(f"full_train: merged {merged.n_nodes} nodes "
+                             f"from {chunk_nodes}, {roots} roots")
+
+    # Each stage: kernels launched, the loss falling, no overflow.
+    report = {}
+    for name in names:
+        rec = stages[name]
+        entry = {"seconds": timing[name], "launches": rec["launches"],
+                 "peak_memory_bytes": rec["peak_memory_bytes"]}
+        if rec["step_ms"]:
+            entry["step_ms_median"] = statistics.median(
+                rec["step_ms"][WARMUP_STEPS:])
+            entry["steps"] = len(rec["step_ms"])
+        if name.endswith("hierarchy") or name == "consolidation":
+            report[name] = entry
+            continue
+        for key in ("blend_exact", "blend_exact_bwd", "slab_gather"):
+            if not rec["launches"].get(key):
+                raise AssertionError(f"full_train: stage {name} never "
+                                     f"launched {key}")
+        if rec["loops"]:
+            (loop,) = rec["loops"]
+            st = loop["stats"]
+            losses = st["losses"]
+            grew = st["exact_growths"] > 0
+            if not (all(math.isfinite(v) for v in losses)
+                    and statistics.mean(losses[-4:])
+                    < statistics.mean(losses[:4])):
+                raise AssertionError(f"full_train: stage {name} losses "
+                                     f"{losses}")
+            if not grew and (st["tile_overflow"] or st["skipped_updates"]):
+                raise AssertionError(f"full_train: stage {name} overflowed "
+                                     f"{st['tile_overflow']} pair slots, "
+                                     f"{st['skipped_updates']} skipped")
+            entry.update(
+                losses=losses, tile_overflow=st["tile_overflow"],
+                dup_overflow=st["dup_overflow"],
+                skipped_updates=st["skipped_updates"],
+                exact_growths=st["exact_growths"],
+                exact_extra=st["final_pipe"].exact_extra,
+                densify_active=st["n_active"],
+                capacity=[loop["start_capacity"], loop["meta"].capacity],
+                capacity_growths=st["overflows"])
+        else:
+            ovf = int(rec.get("post_tile_overflow", 0))
+            if ovf:
+                raise AssertionError(f"full_train: stage {name} post steps "
+                                     f"overflowed {ovf} pair slots")
+            entry["tile_overflow"] = ovf
+        report[name] = entry
+    res = json.loads((eval_dir / "results.json").read_text())
+    psnr0, psnr15 = res["0.0"]["psnr"], res["15.0"]["psnr"]
+    # The merged tree's cut of the held-out view at each tau (nodes).
+    held = scene.cameras[-1]
+    cut_nodes = {f"{t:g}": int(select_cut(merged, held.campos, pixel_limit(
+        t, float(held.tan_fovx), held.width)).selected.sum()) for t in TAUS}
+    if not (math.isfinite(psnr0) and psnr0 > FT_PSNR_MIN
+            and psnr15 <= psnr0):
+        raise AssertionError(f"full_train: tau sweep {res}")
+
+    # The module entry in a process of its own, on the card: the blocks
+    # this process keeps cached are handed back first.
+    torch.cuda.empty_cache()
+    s0 = time.perf_counter()
+    sub_dir = root / "output" / "subprocess_eval"
+    proc = subprocess.run(
+        [sys.executable, "-m", "street_sparse_3dgs_tpu_torch.cli",
+         "render-hierarchy", "--hierarchy",
+         str(paths.trained_chunks_dir / "0_0" / "hierarchy.hier_opt.npz"),
+         "-s", str(paths.chunks_dir / "0_0"), "--images",
+         str(paths.images_dir), "--model_path", str(sub_dir), "--taus", "6",
+         "--no_lpips", *flags], cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    sub_s = time.perf_counter() - s0
+    if proc.returncode != 0 or not (sub_dir / "results.json").exists():
+        raise AssertionError(f"full_train: python -m ...cli failed: "
+                             f"{proc.returncode} {proc.stderr[-2000:]}")
+    sub_res = json.loads((sub_dir / "results.json").read_text())
+    if not math.isfinite(sub_res["6.0"]["psnr"]):
+        raise AssertionError(f"full_train: subprocess eval {sub_res}")
+
+    # The viewer: train-single with the viewer on, a client asking for
+    # frames; then ViewerHook on its saved state against the plain render.
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    cam = scene.cameras[0]
+    client = {}
+    thread = threading.Thread(target=viewer_client,
+                              args=(port, cam, FT_FRAMES, client),
+                              daemon=True)
+    single = root / "output" / "single_viewer"
+    s0 = time.perf_counter()
+    thread.start()
+    with stage_probes(stages) as probe, \
+            contextlib.redirect_stdout(sys.stderr), \
+            probe["open"]("train_single_viewer"):
+        rc = cli.main(["train-single", "-s", str(paths.chunks_dir / "0_0"),
+                       "--images", str(paths.images_dir), "--model_path",
+                       str(single), "--iterations", str(FT_VIEWER_STEPS),
+                       "--port", str(port), "--densify_from_iter", "1000",
+                       *flags])
+    thread.join(timeout=120)
+    viewer_s = time.perf_counter() - s0
+    launches = {k: launches[k] + stages["train_single_viewer"][
+        "launches"].get(k, 0) for k in launches}
+    frames = client.get("frames", [])
+    if rc != 0 or thread.is_alive() or not frames or \
+            client.get("verify") != str(paths.chunks_dir / "0_0") or \
+            frames[0].shape != (HEIGHT, WIDTH, 3) or \
+            float(np.std(frames[0])) == 0.0 or \
+            not (single / "cfg_args").exists():
+        raise AssertionError(f"full_train: viewer run rc {rc}, client "
+                             f"{ {k: v for k, v in client.items() if k != 'frames'} }")
+    params, sky = load_scene_ply(single / "point_cloud" /
+                                 f"iteration_{FT_VIEWER_STEPS}", device=dev)
+    n = params.xyz.shape[0]
+    meta = GaussianMeta(sh_degree=3, capacity=n, skybox_points=sky)
+    state = init_state(params, torch.ones(n, dtype=torch.bool, device=dev),
+                       1)
+    view, proj = wire_matrices(cam)
+    req = ViewerRequest(
+        width=cam.width, height=cam.height,
+        fovx=2 * math.atan(float(cam.tan_fovx)),
+        fovy=2 * math.atan(float(cam.tan_fovy)), znear=0.01, zfar=100.0,
+        do_training=True, keep_alive=True, scaling_modifier=1.0,
+        view_matrix=view, view_projection=proj)
+    gui = _OneRequest(req)
+    hook = ViewerHook(gui, "final", pipe)
+    native.reset_launches()
+    hook(state, meta)
+    hook_launches = dict(native.LAUNCHES)
+    plain = plain_render((params.xyz, activate_scales(params), params.quats,
+                          activate_opacity(params, meta), sh_coeffs(params)),
+                         req.camera(device=dev), raster_config(pipe),
+                         torch.zeros(3, device=dev))
+    frame = torch.as_tensor(gui.frame, device=dev)
+    over = int(((frame - plain).abs().amax(dim=0) > IMG_ATOL).sum())
+    if tuple(frame.shape) != (3, HEIGHT, WIDTH) or \
+            over > FLIP_SHARE * HEIGHT * WIDTH or \
+            not hook_launches["blend_exact"]:
+        raise AssertionError(f"full_train: the hook's frame has {over} "
+                             f"pixels over {IMG_ATOL} against the plain "
+                             f"render; launches {hook_launches}")
+    torch.cuda.synchronize()
+    emit({"phase": "full_train", "seconds": time.perf_counter() - t0,
+          "views": len(scene.cameras), "width": WIDTH,
+          "height": HEIGHT, "rows": rows, "project_write_seconds": write_s,
+          "depth": {"coarse": FT_COARSE, "chunk": FT_CHUNK,
+                    "densify_at": list(FT_DENSIFY), "post": FT_POST},
+          "budgets": budgets, "argv": argv, "run_seconds": run_s, "stage_seconds": timing,
+          "stages": report, "chunk_nodes": chunk_nodes,
+          "merged_nodes": merged.n_nodes,
+          "eval_seconds": eval_s, "eval": res, "cut_nodes": cut_nodes,
+          "rerun_seconds": rerun_s, "rerun_skipped": True,
+          "subprocess_seconds": sub_s, "subprocess_eval": sub_res,
+          "viewer_seconds": viewer_s, "viewer_frames": len(frames),
+          "viewer_latency_ms": client["latency_ms"],
+          "hook_pixels_over_atol": over,
+          "hook_max_abs_err": float((frame - plain).abs().max()),
+          "launches": launches})
+    return {"launches": launches, "timed": stages[FT_TIMED]["calls"],
+            "checks": {k: v["checks"] for k, v in stages.items()
+                       if v.get("checks")}}
+
+
 def grads_small(dev) -> dict:
     """``rasterize`` and its backward on a toy scene (SMALL_N Gaussians,
     SMALL_W x SMALL_H) on the card (kernels) and on the CPU (plain
@@ -1998,7 +2636,10 @@ def main() -> int:
     merge_rec = merge_eval(dev, post_rec.pop("chunks"), post_rec["project"],
                            street_pipe, scene.cameras[0].campos)
 
-    # ---- 14. kernels at the street shapes of view 0 -----------------------
+    # ---- 14. the command line over a two-chunk project (main path, counted)
+    ft_rec = full_train_phase(dev, scene, post_rec["project"], street_pipe)
+
+    # ---- 15. kernels at the street shapes of view 0 -----------------------
     t0 = time.perf_counter()
     counted = {"render": launches_render, "hierarchy": launches_hier,
                "kernel_floor": launches_floor,
@@ -2007,7 +2648,8 @@ def main() -> int:
                "train_loop_toy": loop_rec["launches"],
                "train_street_auto": auto_rec["launches"],
                "post_opt": post_rec["launches"],
-               "merge_eval": merge_rec["launches"]}
+               "merge_eval": merge_rec["launches"],
+               "full_train": ft_rec["launches"]}
 
     def launches_of(key):
         by = {p: c[key] for p, c in counted.items() if c[key]}
@@ -2212,6 +2854,30 @@ def main() -> int:
         "timed": "tau 0", "live_slots": live, **walk, "per_tau": per_tau}
     del calls, args, out
 
+    # K3, K4 and K5 at the full_train shapes: every stage's first call
+    # held against the plain version, chunk 0's training stage timed.
+    per_stage = {key: [checks[key] for checks in ft_rec["checks"].values()
+                       if key in checks]
+                 for key in ("blend_exact", "blend_exact_bwd", "slab_gather")}
+    ft_timed = ft_rec["timed"]
+    for key, plain in (("blend_exact", cb.blend_exact_plain),
+                       ("blend_exact_bwd", cb.blend_exact_bwd_plain)):
+        args, out = ft_timed[key]
+        kern = getattr(cb, key)
+        if key == "blend_exact":
+            b_ms, b_by, live, walk = fwd_bound(args, out, True, sfu_rate)
+        else:
+            b_ms, b_by, live, walk = bwd_bound(args, True, sfu_rate)
+        next(k for k in kernels if k["name"].endswith(" " + key))[
+            "at_full_train"] = {
+            "ms": device_ms(lambda: kern(*args), 20),
+            "wall_ms": event_ms(lambda: kern(*args), 20),
+            "plain_ms": event_ms(lambda: plain(*args), 2),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": max(r["max_abs_err"] for r in per_stage[key]),
+            "timed": "chunk_0_0_train, first step", "live_slots": live,
+            **walk, "per_stage": per_stage[key]}
+
     def k5_timing(k5_args, k5_out) -> dict:
         """K5 on a recorded call: device and wall ms, the plain version's,
         the byte bound (live keys read, starts and counts, the table
@@ -2246,10 +2912,13 @@ def main() -> int:
     k5_merge["timed"] = "tau 0"
     k5_merge["max_abs_err"] = max(float((o - binning.slab_gather_plain(
         *a)).abs().max()) for a, o in k5_calls)
+    k5_ft = k5_timing(*ft_timed["slab_gather"])
+    k5_ft.update(timed="chunk_0_0_train, first step",
+                 per_stage=per_stage["slab_gather"])
     if k5["max_abs_err"] or k5_post["max_abs_err"] or \
             k5_merge["max_abs_err"]:
         raise AssertionError("K5: kernel table differs from plain")
-    del post_rec, merge_rec, k5_calls
+    del post_rec, merge_rec, k5_calls, ft_rec, ft_timed
     kernels.append({
         "name": "K5 slab_gather", "route": "cuda",
         "source": "street_sparse_3dgs_tpu_torch/csrc/slab_gather.cu",
@@ -2259,7 +2928,8 @@ def main() -> int:
                               + launches_hier["slab_gather"])
         / (n_renders["slab_gather"] * (1 + TIMED_RUNS)),
         "tolerance": "exactly equal", **k5, "shapes": "street view 0",
-        "at_post_opt": k5_post, "at_merge_eval": k5_merge})
+        "at_post_opt": k5_post, "at_merge_eval": k5_merge,
+        "at_full_train": k5_ft})
     # D1-D3 at the street shapes of the kernel_floor phase: the headline
     # variant (level 2; D3 one tile a block) and every variant beside it.
     for probe, replaces in (("D1", "tools/kernel_floor_tpu.py:40"),

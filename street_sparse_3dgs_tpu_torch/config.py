@@ -1,11 +1,17 @@
-"""Configuration dataclasses, field for field those of
-``street_sparse_3dgs_tpu/config.py`` (same names and defaults, so a JAX
-config converts with ``dataclasses.asdict``).  The argparse helpers and the
-``cfg_args`` snapshot belong to the CLI slice of the port."""
+"""Typed configuration tree and its reflection-based CLI, field for field
+those of ``street_sparse_3dgs_tpu/config.py``: the same names and defaults,
+the same ``--field`` flags (types matched by the string annotations that
+``from __future__ import annotations`` leaves on the fields), and the same
+``<model_path>/cfg_args`` JSON snapshot, so a snapshot written by one
+package loads in the other.  ``raster_method="pallas"`` selects the CUDA
+kernels here."""
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import json
+from pathlib import Path
 
 
 @dataclasses.dataclass
@@ -92,3 +98,89 @@ def parse_tails(s) -> tuple:
         return tuple((int(b), int(w)) for b, w in s)
     return tuple(tuple(int(x) for x in part.split(":"))
                  for part in s.split(",") if part)
+
+
+_GROUPS = {"model": ModelConfig, "pipeline": PipelineConfig,
+           "opt": OptimizationConfig}
+
+
+def add_group_args(parser: argparse.ArgumentParser, cls) -> None:
+    """Auto-create ``--field`` flags from dataclass fields (bools become
+    store_true, mirroring ParamGroup's reflection)."""
+    for f in dataclasses.fields(cls):
+        name = "--" + f.name
+        if f.type in ("bool", bool):
+            parser.add_argument(name, action="store_true",
+                                default=f.default)
+        elif f.type in ("tuple", tuple):
+            default = f.default if f.default is not dataclasses.MISSING \
+                else f.default_factory()
+            parser.add_argument(name, type=parse_tails, default=default)
+        else:
+            typ = {"int": int, "float": float, "str": str}.get(f.type, str) \
+                if isinstance(f.type, str) else f.type
+            parser.add_argument(name, type=typ, default=f.default)
+
+
+def extract_group(args: argparse.Namespace, cls):
+    kw = {}
+    for f in dataclasses.fields(cls):
+        if not hasattr(args, f.name):
+            continue
+        v = getattr(args, f.name)
+        if f.type in ("tuple", tuple):
+            v = parse_tails(v)          # JSON round-trips tuples as lists
+        kw[f.name] = v
+    return cls(**kw)
+
+
+def make_parser(description: str = "") -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description=description)
+    for cls in _GROUPS.values():
+        add_group_args(parser, cls)
+    return parser
+
+
+def parse_all(argv=None, description: str = ""):
+    parser = make_parser(description)
+    args, _ = parser.parse_known_args(argv)
+    return (extract_group(args, ModelConfig),
+            extract_group(args, PipelineConfig),
+            extract_group(args, OptimizationConfig), args)
+
+
+def save_cfg_args(model_path: str | Path, model: ModelConfig,
+                  pipeline: PipelineConfig, opt: OptimizationConfig) -> None:
+    """Snapshot the full config as JSON in ``<model_path>/cfg_args``."""
+    path = Path(model_path)
+    path.mkdir(parents=True, exist_ok=True)
+    blob = {name: dataclasses.asdict(cfg) for name, cfg in
+            (("model", model), ("pipeline", pipeline), ("opt", opt))}
+    (path / "cfg_args").write_text(json.dumps(blob, indent=2))
+
+
+def load_combined(model_path: str | Path, argv=None):
+    """Merge a saved cfg_args with CLI flags; CLI wins where explicitly given
+    (``get_combined_args`` semantics)."""
+    blob = json.loads((Path(model_path) / "cfg_args").read_text())
+    parser = make_parser()
+    args, _ = parser.parse_known_args(argv or [])
+    explicit = set()
+    for tok in (argv or []):
+        if tok.startswith("--"):
+            explicit.add(tok[2:].split("=")[0])
+    out = []
+    for name, cls in _GROUPS.items():
+        saved = blob.get(name, {})
+        kw = {}
+        for f in dataclasses.fields(cls):
+            if f.name in explicit:
+                kw[f.name] = getattr(args, f.name)
+            elif f.name in saved:
+                kw[f.name] = saved[f.name]
+            else:
+                kw[f.name] = f.default
+            if f.type in ("tuple", tuple):
+                kw[f.name] = parse_tails(kw[f.name])
+        out.append(cls(**kw))
+    return tuple(out)

@@ -21,7 +21,10 @@ applies the cadenced side effects of the reference (``train_single.py:
   finds too far from the GT cloud;
 - checkpoints at ``hooks.checkpoint_iterations``: the ``on_checkpoint``
   hook, or without one ``model_path/chkpnt{it}.npz``
-  (``models/serialize.save_checkpoint``).
+  (``models/serialize.save_checkpoint``);
+- the live viewer: ``hooks.viewer_poll`` (``viewer/hook.ViewerHook``) at
+  the top of every iteration, with the state before the step and the
+  previous step's background.
 
 The budget grows from the LARGEST single-step ``tile_overflow`` since the
 last check (a running ``torch.maximum`` on the device), not from the sum of
@@ -164,12 +167,16 @@ def autosize_pipeline(pipe: PipelineConfig, state: TrainState,
 
 @dataclasses.dataclass
 class LoopHooks:
-    """Optional host callbacks."""
+    """Optional host callbacks (progress, checkpointing, network GUI)."""
 
     on_step: Callable | None = None          # (it, state, aux) -> None
     on_densify: Callable | None = None       # (it, n_active) -> None
     checkpoint_iterations: tuple = ()
     on_checkpoint: Callable | None = None    # (it, state, meta) -> None
+    # Live viewer: a ViewerHook (viewer/hook.py), polled at the top of every
+    # iteration with the current state like the reference
+    # (``train_single.py:80-97``).
+    viewer_poll: Callable | None = None      # (state, meta, done, bg) -> bool
 
 
 def train_loop(
@@ -249,6 +256,7 @@ def train_loop(
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     dup_acc, tile_acc, skip_acc, tile_max = zero, zero, zero, zero
     it = 0
+    last_bg = None
     batch_iter = iter(batches)
     while it < iterations:
         try:
@@ -258,8 +266,12 @@ def train_loop(
             batch = next(batch_iter)
         it += 1
 
+        if hooks.viewer_poll is not None:
+            hooks.viewer_poll(state, meta, it >= iterations, last_bg)
+
         step = step_for(bool(getattr(batch, "is_depth_only", False)))
         state, aux = step(state, batch)
+        last_bg = aux.get("bg")
         if hooks.on_step is not None:
             hooks.on_step(it, state, aux)
         # Counters stay on the device; the host reads them at the check
