@@ -5,9 +5,10 @@
 
 Drives the port's forward LOD render path, its training path, its
 street-scale tools path, its hierarchy back end (post-optimization,
-merge, evaluation) and its command line (the five-stage ``full-train``,
-``render-hierarchy``, the live viewer) on the card and holds every
-hand-written kernel against its plain PyTorch version:
+merge, evaluation), its command line (the five-stage ``full-train``,
+``render-hierarchy``, the live viewer) and its multi-rank layer
+(``parallel/``) on the card and holds every hand-written kernel against
+its plain PyTorch version:
 
 1. build   — compile ``street_sparse_3dgs_tpu_torch/csrc/*.cu`` (one nvcc per
              source, in parallel) into the ignored ``build/kernels/``;
@@ -93,7 +94,28 @@ hand-written kernel against its plain PyTorch version:
              each stage's first K3, K4 and K5 call held against its plain
              version when the stage ends, chunk 0's training calls kept
              for phase 15;
-15. kernels_street — K1-K5 timed at the shapes of phases 4, 8, 9, and K3,
+15. parallel — ``parallel/`` in three spawned worlds of ranks sharing the
+             card (``parallel.mesh.run_world``; the parent builds the
+             kernels first, ranks only load them): 2 ranks on gloo at full
+             width (``rasterize_tile_sharded`` padded, K = 1024, and exact,
+             forward and the backward of mean(render^2) against the serial
+             ``rasterize``; the exact counts ``make_tile_sharded_train_step``
+             (1 x 2) for PAR_STEPS steps against the serial
+             ``make_train_step``; ``make_dp_train_step`` (2 x 1); the ring
+             render and ``make_ring_train_step`` at a ``max_dup`` and K
+             sized so that nothing overflows, against the serial path; the
+             dry run ``parallel/dryrun``), 1 rank on nccl (the DP step twice,
+             bit-identical, the reference of the gloo DP step; the
+             tile-sharded render) and 4 ranks on gloo at 200k rows, 960x544
+             (the (2 x 2) tp steps, padded and exact counts, against the
+             nccl rank's DP step on the same batch).  Losses at rtol 1e-5,
+             params within one Adam quantum, denom equal; each rank's first
+             K1 (tile0 > 0; t_mod with per-tile backgrounds), K3 (a rank's
+             order; t_mod), K2 and K4 held against the plain versions, and a
+             rank's K4 against the whole view's K4 on its windows bit for
+             bit; step ms, host transport, peak memory and launches per
+             rank.  A rank's failure or a world past PAR_TIMEOUT fails it;
+16. kernels_street — K1-K5 timed at the shapes of phases 4, 8, 9, and K3,
              K4 at those of phases 11, 12 and 14, K1 at phase 9's, K2 at phase
              10's:
              ``ms`` is device time (``profiling.device_ms``), ``wall_ms``
@@ -105,9 +127,10 @@ hand-written kernel against its plain PyTorch version:
              warp-slots where a pixel passes the alpha test, from which
              the bound is counted; K3 also deepest first, and against the
              split's plain twin;
-16. the kernels line (launches counted on phases 4, 5, 7, 8, 9, 10, 11,
-             12, 13 and 14 only, error against the plain version, times,
-             bound) and the device line.
+17. the kernels line (launches counted on phases 4, 5, 7, 8, 9, 10, 11,
+             12, 13, 14 and 15 only, error against the plain version, times,
+             bound; K1-K4 with their ``at_parallel`` calls) and the device
+             line.
 
 Every phase prints one JSON line.  Any failure raises and exits nonzero.
 Without a CUDA card it exits 1 before printing any result.
@@ -213,24 +236,30 @@ class Recorder:
     """Wraps ``module.name`` so every call's arguments and result are kept
     while the ``with`` block runs (the comparison harness only);
     ``first_only`` keeps the first call alone, detached, so that no autograd
-    graph outlives its step."""
+    graph outlives its step.  ``calls`` holds (positional arguments,
+    result); ``kwargs`` each call's keyword arguments (a launch ``order``,
+    a ``tile0``)."""
 
     def __init__(self, module, name: str, first_only: bool = False):
         self.module, self.name = module, name
         self.fn = getattr(module, name)
         self.first_only = first_only
         self.calls: list = []
+        self.kwargs: list = []
 
     def __enter__(self):
-        # Keyword arguments (a launch ``order``) pass through unrecorded.
+        def detach(x):
+            return x.detach() if isinstance(x, torch.Tensor) else x
+
         def wrapped(*args, **kw):
             out = self.fn(*args, **kw)
             if not self.first_only:
                 self.calls.append((args, out))
+                self.kwargs.append(kw)
             elif not self.calls:
-                self.calls.append((tuple(
-                    x.detach() if isinstance(x, torch.Tensor) else x
-                    for x in args), out.detach()))
+                self.calls.append((tuple(detach(x) for x in args),
+                                   out.detach()))
+                self.kwargs.append({k: detach(v) for k, v in kw.items()})
             return out
 
         setattr(self.module, self.name, wrapped)
@@ -2146,7 +2175,7 @@ def walk_counts(args, out, exact: bool, reach: int) -> dict:
         vcounts, wt, last_v = args[1:4]
         tiles_x, t_mod = (list(args[5:]) + [0])[:2]
         chunks = ((s, e, attrs[v].reshape(e - s, -1, 10).transpose(1, 2),
-                   total, cb._chunk_tiles(s, e, dev, t_mod))
+                   total, cb._tile_mod(torch.arange(s, e, device=dev), t_mod))
                   for s, e, v, _, total in cb._exact_chunks(
                       vcounts, wt, last_v, attrs.shape[1], 1 << 24))
     else:
@@ -2178,6 +2207,716 @@ def walk_counts(args, out, exact: bool, reach: int) -> dict:
     return {"walked_steps": walked_steps, "passing_steps": passed_steps,
             "walked_warp_slots": walked_ws, "passing_warp_slots": passed_ws,
             "warp_slot_pass_share": passed_ws / max(walked_ws, 1)}
+
+
+# ---- phase parallel: the multi-rank layer ----------------------------------
+
+# Steps of each parallel training run and timed renders, each after
+# PAR_WARMUP uncounted-for-time warm-ups (all counted for launches).
+PAR_STEPS, PAR_WARMUP, PAR_RENDERS = 3, 1, 3
+# The (2 x 2) cell, cut from the street scene's 1M rows at 1920x1088: four
+# ranks' replicated binning of the full scene would not fit one card.
+PAR_REDUCED_N, PAR_REDUCED_W, PAR_REDUCED_H = 200_000, 960, 544
+PAR_TIMEOUT = 600.0          # s a world may run before it counts as hung
+# The exact window budget of a sharded run: the worst shard's need on the
+# views' pre-clip counts times this margin (the steps move the rows).
+PAR_BUDGET_MARGIN = 1.25
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def shard_budget(counts_list, k_cap: int, n: int) -> int:
+    """An exact window budget (a multiple of ``n``) under which no shard of
+    ``n`` overflows on the views' pre-clip tile counts ``counts_list``,
+    with PAR_BUDGET_MARGIN headroom, and at least the street config's
+    9,216."""
+    need = 0
+    for counts in counts_list:
+        t = counts.shape[0]
+        c = torch.zeros(-(-t // n) * n, dtype=torch.int64,
+                        device=counts.device)
+        c[:t] = counts
+        extra = torch.clamp(-torch.div(-c, k_cap, rounding_mode="floor"),
+                            min=1) - 1
+        need = max(need, int(extra.reshape(n, -1).sum(dim=1).max()))
+    e = max(9216, math.ceil(need * n * PAR_BUDGET_MARGIN))
+    return -(-e // n) * n
+
+
+def ring_sizing(rows, cam) -> tuple:
+    """(max_dup, K) under which the ring's rectangle pairs neither drop a
+    tile of any row nor overflow a tile: the largest covered tile rectangle
+    and the deepest tile's rectangle count (rounded up to 128), from a 2-D
+    difference array over the tile grid."""
+    from street_sparse_3dgs_tpu_torch.ops.binning import num_tiles, tile_rect
+    from street_sparse_3dgs_tpu_torch.ops.preprocess import project_gaussians
+    with torch.no_grad():
+        proj = project_gaussians(*rows, cam, 3)
+        tx, ty = num_tiles(cam.height, cam.width)
+        x0, y0, x1, y1 = (v.to(torch.int64)[proj.valid] for v in tile_rect(
+            proj.mean2d, proj.radius, tx, ty))
+        diff = torch.zeros((ty + 1) * (tx + 1), dtype=torch.int64,
+                           device=x0.device)
+        for yy, xx, s in ((y0, x0, 1), (y0, x1, -1), (y1, x0, -1),
+                          (y1, x1, 1)):
+            diff.index_add_(0, yy * (tx + 1) + xx, torch.full_like(yy, s))
+        grid = diff.reshape(ty + 1, tx + 1).cumsum(0).cumsum(1)
+        return (int(((x1 - x0) * (y1 - y0)).max()),
+                128 * -(-int(grid.max()) // 128))
+
+
+@contextlib.contextmanager
+def par_counted(dev, rec: dict):
+    """The counted main-path run of a rank: launch counts and the host
+    transport zeroed at entry and read at exit, with the peak memory and
+    seconds of the block."""
+    from street_sparse_3dgs_tpu_torch import native
+    from street_sparse_3dgs_tpu_torch.parallel import collectives
+    native.reset_launches()
+    collectives.reset_transport()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    yield
+    sync(dev)
+    rec.update(seconds=time.perf_counter() - t0,
+               launches=dict(native.LAUNCHES),
+               transport=dict(collectives.TRANSPORT),
+               peak_bytes=torch.cuda.max_memory_allocated(dev)
+               if dev.type == "cuda" else 0)
+
+
+def par_timed(dev, fn, n: int) -> tuple:
+    """(host ms of each of ``n`` synchronised calls, the last result)."""
+    ms, out = [], None
+    for _ in range(n):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms, out
+
+
+def held_parallel(kf: "Recorder", kb: "Recorder", exact: bool) -> dict:
+    """A rank's first recorded blend call (K1 or K3, with its keyword
+    ``tile0``/``t_mod``/``order``) and its backward (K2 or K4) against the
+    plain versions on the same inputs: the image bar with the flip share,
+    GRAD_BAR x max|g| per channel."""
+    from street_sparse_3dgs_tpu_torch.ops import cuda_blend as cb
+    (args, out), kw = kf.calls[0], kf.kwargs[0]
+    plain = cb.blend_exact_plain if exact else cb.blend_padded_plain
+    cmp = compare_blend(out, plain(*args, **kw))
+    name = "K3" if exact else "K1"
+    check_blend(f"{name} at parallel", cmp, strict=False)
+    grid = {k: (int(v.shape[0]) if isinstance(v, torch.Tensor) else v)
+            for k, v in kw.items()}
+    (bargs, bout), bkw = kb.calls[0], kb.kwargs[0]
+    plain_b = cb.blend_exact_bwd_plain if exact else cb.blend_padded_bwd_plain
+    gcmp = compare_grads(f"{'K4' if exact else 'K2'} at parallel", bout,
+                         plain_b(*bargs, **bkw), 2 if exact else 1)
+    return {"fwd": {"name": name, "tiles": int(out.shape[0]), **grid,
+                    "per_tile_bg": int(args[4 if exact else 2].shape[0]) != 1,
+                    "max_abs_err": cmp["max_abs_err"], "flips": cmp["flips"],
+                    "pixels_over_atol": cmp["pixels_over_atol"]},
+            "bwd": {"name": "K4" if exact else "K2",
+                    "max_abs_err": gcmp["max_abs_err"],
+                    "max_scaled_err": gcmp["max_scaled_err"]}}
+
+
+def k4_rank_vs_whole(kf: "Recorder", kb: "Recorder") -> dict:
+    """A rank's K4 call (its tiles through ``order``) against K4 over the
+    whole view on the whole view's saved rows (K3 with no order) and the
+    same cotangent: equal bit for bit on the rank's windows; the rank's
+    call leaves every other window zero."""
+    from street_sparse_3dgs_tpu_torch.ops import cuda_blend as cb
+    k3_args = kf.calls[0][0]
+    (args, out), kw = kb.calls[0], kb.kwargs[0]
+    attrs, vcounts, wt, last_v, bg, _, g_out, tiles_x, t_mod = args
+    whole = cb.blend_exact_bwd(attrs, vcounts, wt, last_v, bg,
+                               cb.blend_exact(*k3_args), g_out, tiles_x,
+                               t_mod)
+    v_last = last_v.to(torch.int64)[kw["order"].to(torch.int64)]
+    first = v_last - wt.to(torch.int64)[v_last]
+    win = torch.zeros(attrs.shape[0] + 1, dtype=torch.int64,
+                      device=attrs.device)
+    win.index_add_(0, first, torch.ones_like(first))
+    win.index_add_(0, v_last + 1, -torch.ones_like(first))
+    mine = torch.cumsum(win, 0)[:-1] > 0
+    equal = torch.equal(whole[mine], out[mine]) and not bool(out[~mine].any())
+    if not equal:
+        raise AssertionError("K4 at parallel: a rank's grads differ from "
+                             "the whole view's on its windows")
+    return {"windows": int(mine.sum()), "bit_identical": equal}
+
+
+class ParCtx:
+    """What a rank of phase parallel's worlds shares between its cases:
+    the inputs the parent saved, the scenes (made here from their seeds),
+    and the meshes (made once each: every rank makes them in one order)."""
+
+    def __init__(self, rank: int, world: int, spec: dict):
+        from street_sparse_3dgs_tpu_torch.parallel.dryrun import rank_device
+        self.rank, self.world, self.spec = rank, world, spec
+        self.dev = rank_device(spec["device"], rank)
+        self.inp = torch.load(spec["inputs"], weights_only=False)
+        self._scenes, self._meshes = {}, {}
+
+    def scene(self, key: str):
+        from street_sparse_3dgs_tpu_torch.data.toy import make_street_scene
+        if key not in self._scenes:
+            n, views, w, h = self.inp["scenes"][key]
+            s = make_street_scene(seed=0, n=n, n_cameras=views, width=w,
+                                  height=h, device=self.dev)
+            self._scenes[key] = ((s.means3d, s.scales, s.quats, s.opacities,
+                                  s.sh_coeffs), s.cameras)
+        return self._scenes[key]
+
+    def mesh(self, n_data: int, n_tile: int):
+        from street_sparse_3dgs_tpu_torch.parallel.mesh import make_mesh
+        if (n_data, n_tile) not in self._meshes:
+            self._meshes[n_data, n_tile] = make_mesh(n_data, n_tile,
+                                                     device=self.dev)
+        return self._meshes[n_data, n_tile]
+
+    def batches(self, key: str):
+        rows, cams = self.scene(key)
+        return camera_batches(cams, [g.to(self.dev) for g in
+                                     self.inp["gts"][key]], self.dev)
+
+    def start(self, key: str):
+        """The trainee's start state on the scene ``key`` (whole rows)."""
+        from street_sparse_3dgs_tpu_torch.train.step import init_state
+        rows, cams = self.scene(key)
+        params = start_params(rows, 1, self.dev)
+        n = params.xyz.shape[0]
+        return (init_state(params, torch.ones(n, dtype=torch.bool,
+                                              device=self.dev), len(cams)),
+                _meta(n))
+
+
+def checksum(*xs) -> list:
+    """float64 sums: what a rank's replicated results must share."""
+    return [float(x.detach().double().sum()) for x in xs]
+
+
+def state_record(state, rows=None) -> dict:
+    """The state's params and statistics on the CPU (``rows`` a slice of
+    the rows to keep, or all)."""
+    sl = rows if rows is not None else slice(None)
+    return {"params": {k: v[sl].detach().cpu()
+                       for k, v in state.params._asdict().items()},
+            "exposure": state.exposure.detach().cpu(),
+            **{k: getattr(state, k)[sl].detach().cpu()
+               for k in ("grad_accum", "denom", "max_radii2d")}}
+
+
+def par_render(ctx: ParCtx, cfg, ring: bool = False) -> dict:
+    """The tile-sharded (or, with ``ring``, ring-staged) render of the
+    street scene's view 0 on a (1 x world) mesh, forward and the backward
+    of mean(render^2), PAR_WARMUP + PAR_RENDERS times; then, uncounted, the
+    first blend and backward calls of one more run held against the plain
+    versions (and for the exact path a rank's K4 against the whole
+    view's)."""
+    from street_sparse_3dgs_tpu_torch.ops import cuda_blend as cb
+    from street_sparse_3dgs_tpu_torch.parallel.ring import (
+        rasterize_ring_staged)
+    from street_sparse_3dgs_tpu_torch.parallel.tiles import (
+        rasterize_tile_sharded)
+    rows, cams = ctx.scene("street")
+    mesh = ctx.mesh(1, ctx.world)
+    bg = torch.zeros(3, device=ctx.dev)
+    if ring:
+        blk = rows[0].shape[0] // ctx.world
+        rows = tuple(x[ctx.rank * blk:(ctx.rank + 1) * blk] for x in rows)
+    fn = rasterize_ring_staged if ring else rasterize_tile_sharded
+
+    def fwd_bwd():
+        leaves = [r.detach().requires_grad_(True) for r in rows]
+        out = fn(*leaves, cams[0], 3, bg, mesh, cfg)
+        torch.mean(out["render"] ** 2).backward()
+        return out, [x.grad for x in leaves]
+
+    rec = {}
+    with par_counted(ctx.dev, rec):
+        ms, (out, grads) = par_timed(ctx.dev, fwd_bwd,
+                                     PAR_WARMUP + PAR_RENDERS)
+    img = torch.cat([out["render"], out["depth"], out["alpha"][None]])
+    rec.update(ms=ms, ms_median=statistics.median(ms[PAR_WARMUP:]),
+               checksum=checksum(img, *([] if ring else grads)),
+               overflow={k: int(out[k]) for k in
+                         ("tile_overflow", "dup_overflow", "pair_overflow")
+                         if k in out})
+    if ctx.rank == 0:
+        rec["image"] = img.detach().cpu()
+    if ring or ctx.rank == 0:
+        rec["grads"] = [g.cpu() for g in grads]
+    del out, grads, img
+    if not ring:
+        exact = bool(cfg.exact_extra)
+        name = "blend_exact" if exact else "blend_padded"
+        with Recorder(cb, name, first_only=True) as kf, \
+                Recorder(cb, name + "_bwd", first_only=True) as kb:
+            fwd_bwd()
+        rec["held"] = held_parallel(kf, kb, exact)
+        if exact:
+            rec["k4_rank_vs_whole"] = k4_rank_vs_whole(kf, kb)
+    return rec
+
+
+def par_steps(ctx: ParCtx, kind: str, pipe, key: str, views: list,
+              n_data: int, n_tile: int, repeat: int = 1) -> dict:
+    """PAR_STEPS steps of the ``kind`` step ("dp", "tp" or "ring") on a
+    (n_data x n_tile) mesh over the scene ``key``: step s takes the views
+    ``views[s]`` (a list) with the backgrounds the parent drew; ``repeat``
+    runs it again from the start (the second run's state must equal the
+    first's bit for bit).  Records losses, counters, step ms and the final
+    state (rank 0; every rank its own rows in the ring); for the tp step
+    the first K1/K3 and K2/K4 calls of one more step, held against the
+    plain versions."""
+    from street_sparse_3dgs_tpu_torch.config import OptimizationConfig
+    from street_sparse_3dgs_tpu_torch.ops import cuda_blend as cb
+    from street_sparse_3dgs_tpu_torch.parallel import dp, ring, tp
+    mesh = ctx.mesh(n_data, n_tile)
+    batches = ctx.batches(key)
+    bgs = ctx.inp["bgs"][key].to(ctx.dev)                 # [steps, V, 3]
+    state0, meta = ctx.start(key)
+    opt, scale = OptimizationConfig(), ctx.inp["extent"][key]
+    if kind == "dp":
+        step, shard_batch, shard_state = dp.make_dp_train_step(
+            meta, opt, pipe, scale, mesh)
+
+        def run(state, s):
+            vs = views[s]
+            return step(state, shard_batch([batches[v] for v in vs]),
+                        shard_batch(bgs[s, vs]))
+    elif kind == "tp":
+        step, shard_state = tp.make_tile_sharded_train_step(
+            meta, opt, pipe, scale, mesh)
+
+        def run(state, s):
+            vs = views[s]
+            return step(state, [batches[v] for v in vs], bgs[s, vs])
+    else:
+        step, shard_state = ring.make_ring_train_step(meta, opt, pipe, scale,
+                                                      mesh)
+
+        def run(state, s):
+            v = views[s][0]
+            return step(state, batches[v], bgs[s, v])
+
+    rec, finals = {}, []
+    for r in range(repeat):
+        state, auxs, ms = shard_state(state0), [], []
+        with contextlib.ExitStack() as stack:
+            if r == 0:
+                stack.enter_context(par_counted(ctx.dev, rec))
+            for s in range(PAR_STEPS):
+                sync(ctx.dev)
+                t0 = time.perf_counter()
+                state, aux = run(state, s)
+                sync(ctx.dev)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                auxs.append({k: float(v) for k, v in aux.items()})
+        finals.append(state)
+        if r == 0:
+            rec.update(ms=ms, ms_median=statistics.median(ms[PAR_WARMUP:]),
+                       aux=auxs)
+    if repeat > 1:
+        rec["bit_identical_rerun"] = all(bit_identical(finals[0], f)
+                                         for f in finals[1:])
+        if not rec["bit_identical_rerun"]:
+            raise AssertionError(f"parallel {kind}: two runs differ")
+    state = finals[0]
+    rec["checksum"] = checksum(state.params.xyz, state.exposure)
+    if kind == "ring" or ctx.rank == 0:
+        rec["state"] = state_record(state)
+    if kind == "tp":
+        exact = bool(pipe.exact_extra)
+        name = "blend_exact" if exact else "blend_padded"
+        with Recorder(cb, name, first_only=True) as kf, \
+                Recorder(cb, name + "_bwd", first_only=True) as kb:
+            run(shard_state(state0), 0)
+        rec["held"] = held_parallel(kf, kb, exact)
+    return rec
+
+
+def par_rank(rank: int, world: int, spec: dict) -> dict:
+    """One rank of a world of phase parallel: ``spec["cases"]`` in order,
+    each (name, function name in this module, keyword arguments)."""
+    ctx = ParCtx(rank, world, spec)
+    out = {}
+    for name, fn, kw in spec["cases"]:
+        if fn == "dryrun":
+            from street_sparse_3dgs_tpu_torch.parallel.dryrun import (
+                dryrun_rank)
+            rec = {}
+            with par_counted(ctx.dev, rec):
+                rec["record"] = dryrun_rank(rank, world, spec["device"],
+                                            kw["project"])
+            out[name] = rec
+        else:
+            out[name] = globals()[fn](ctx, **kw)
+    return out
+
+
+def scene_extent(cams) -> float:
+    """The spatial learning-rate scale: 1.1 x the largest distance of the
+    camera centres from their mean (the reference's nerf++ norm)."""
+    centres = torch.stack([c.campos for c in cams])
+    return 1.1 * float(torch.linalg.vector_norm(
+        centres - centres.mean(dim=0), dim=1).max())
+
+
+def grads_within(name: str, got: list, want: list) -> dict:
+    """Per parameter |got - want| <= GRAD_BAR x max|want| + GRAD_RTOL x
+    |want| (JAX's bar, tests/test_parallel.py:66-67); returns each
+    parameter's largest |got - want| / max|want|."""
+    errs = []
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
+        g, w = g.to(w.device).double(), w.double()
+        scale = float(w.abs().max()) + 1e-30
+        excess = (g - w).abs() - GRAD_RTOL * w.abs() - GRAD_BAR * scale
+        errs.append(float((g - w).abs().max()) / scale)
+        if bool((excess > 0).any()):
+            raise AssertionError(f"{name}: grads of parameter {i} off by "
+                                 f"{errs[-1]} x max|g|")
+    return {"max_scaled_err": errs}
+
+
+def image_within(name: str, got: torch.Tensor, want: torch.Tensor) -> dict:
+    """Pixels of [5, H, W] (RGB, depth, alpha) off by more than IMG_ATOL:
+    at most FLIP_SHARE of them (termination flips)."""
+    err = (got.to(want.device) - want).abs().amax(dim=0)
+    over = int((err > IMG_ATOL).sum())
+    if over > FLIP_SHARE * err.numel():
+        raise AssertionError(f"{name}: {over} pixels over {IMG_ATOL}")
+    return {"max_abs_err": float(err.max()), "pixels_over_atol": over}
+
+
+def states_within(name: str, got: dict, want: dict, opt, scale: float,
+                  losses_got: list, losses_want: list) -> dict:
+    """Two training runs' final states and losses: losses at rtol 1e-5,
+    params within one Adam quantum (2.05 lr + 1e-5,
+    tests/test_parallel.py:211-221), exposure at 1e-6, grad_accum and
+    max_radii2d at 1e-5, denom equal."""
+    lr = {"xyz": opt.position_lr_init * scale, "features_dc": opt.feature_lr,
+          "features_rest": opt.feature_lr / 20.0,
+          "opacity_raw": opt.opacity_lr, "log_scales": opt.scaling_lr,
+          "quats": opt.rotation_lr}
+    dev_q = {}
+    for k, q in lr.items():
+        d = float((got["params"][k] - want["params"][k]).abs().max())
+        dev_q[k] = d / q
+        if d > 2.05 * q + 1e-5:
+            raise AssertionError(f"{name}: {k} off by {d} (lr {q})")
+    for a, b in zip(losses_got, losses_want, strict=True):
+        if not math.isclose(a, b, rel_tol=1e-5, abs_tol=1e-6):
+            raise AssertionError(f"{name}: losses {losses_got} against "
+                                 f"{losses_want}")
+    close = {k: float((got[k] - want[k]).abs().max())
+             for k in ("exposure", "grad_accum", "max_radii2d", "denom")}
+    if close["exposure"] > 1e-6 or close["grad_accum"] > 1e-5 or \
+            close["max_radii2d"] > 1e-5 or close["denom"] != 0:
+        raise AssertionError(f"{name}: statistics differ {close}")
+    return {"param_dev_in_lr": dev_q, **close}
+
+
+PAR_KERNELS = {"padded": ("slab_gather", "blend_padded", "blend_padded_bwd"),
+               "exact": ("slab_gather", "blend_exact", "blend_exact_bwd"),
+               "ring": ("blend_padded", "blend_padded_bwd"),
+               "all": ("slab_gather", "blend_padded", "blend_padded_bwd",
+                       "blend_exact", "blend_exact_bwd")}
+
+
+def parallel_phase(dev, scene, street_pipe) -> dict:
+    """Phase parallel: the port's ``parallel/`` on the card in three
+    spawned worlds of ranks that share it (``gloo`` with W ranks,
+    ``nccl`` with one), their main paths counted, checked against the
+    serial path in this process; see the module docstring."""
+    import dataclasses
+
+    from street_sparse_3dgs_tpu_torch.config import (OptimizationConfig,
+                                                     PipelineConfig)
+    from street_sparse_3dgs_tpu_torch.data.toy import make_street_scene
+    from street_sparse_3dgs_tpu_torch.ops import binning
+    from street_sparse_3dgs_tpu_torch.ops.preprocess import project_gaussians
+    from street_sparse_3dgs_tpu_torch.ops.rasterize import rasterize
+    from street_sparse_3dgs_tpu_torch.parallel.mesh import run_world
+    from street_sparse_3dgs_tpu_torch.parallel.tiles import bin_kwargs
+    from street_sparse_3dgs_tpu_torch.train.step import (init_state,
+                                                         make_train_step,
+                                                         raster_config)
+    t0 = time.perf_counter()
+    root = ROOT / "build" / "smoke" / "parallel"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    red = make_street_scene(seed=0, n=PAR_REDUCED_N, n_cameras=N_VIEWS,
+                            width=PAR_REDUCED_W, height=PAR_REDUCED_H,
+                            device=dev)
+    scenes = {"street": ((scene.means3d, scene.scales, scene.quats,
+                          scene.opacities, scene.sh_coeffs), scene.cameras),
+              "reduced": ((red.means3d, red.scales, red.quats, red.opacities,
+                           red.sh_coeffs), red.cameras)}
+    street_cfg = raster_config(street_pipe)
+
+    def counts(key, cam):
+        rows = scenes[key][0]
+        with torch.no_grad():
+            proj = project_gaussians(*rows, cam, 3)
+            return binning.bin_gaussians(
+                proj, cam.height, cam.width, street_cfg.max_dup,
+                street_cfg.tile_capacity, **bin_kwargs(street_cfg)).counts
+
+    e2 = shard_budget([counts("street", c)
+                       for c in scene.cameras[:PAR_STEPS]], 128, 2)
+    e4 = shard_budget([counts("reduced", c) for c in red.cameras], 128, 4)
+    exact2 = dataclasses.replace(street_pipe, exact_extra=e2)
+    exact4 = dataclasses.replace(street_pipe, exact_extra=e4)
+    padded = dataclasses.replace(street_pipe, exact_extra=0,
+                                 tile_capacity=1024, grad_reduce="sort")
+    ring_dup, ring_k = ring_sizing(scenes["street"][0], scene.cameras[0])
+    ring_pipe = PipelineConfig(raster_method="pallas", max_dup=ring_dup,
+                               tile_capacity=ring_k, dup_overscan=1)
+    bg0 = torch.zeros(3, device=dev)
+    gts = {k: [plain_render(rows, c, street_cfg, bg0).cpu() for c in cams]
+           for k, (rows, cams) in scenes.items()}
+    gen = torch.Generator().manual_seed(17)
+    bgs = {k: torch.rand((PAR_STEPS, N_VIEWS, 3), generator=gen)
+           for k in scenes}
+    extent = {k: scene_extent(cams) for k, (_, cams) in scenes.items()}
+    inputs = root / "inputs.pt"
+    torch.save({"scenes": {"street": (N_ROWS, N_VIEWS, WIDTH, HEIGHT),
+                           "reduced": (PAR_REDUCED_N, N_VIEWS,
+                                       PAR_REDUCED_W, PAR_REDUCED_H)},
+                "gts": gts, "bgs": bgs, "extent": extent}, inputs)
+    sizing = {"exact_extra_2": e2, "exact_extra_4": e4,
+              "ring_max_dup": ring_dup, "ring_tile_capacity": ring_k}
+    setup_s = time.perf_counter() - t0
+
+    one = [[s] for s in range(PAR_STEPS)]
+    pair = [[0, 1]] * PAR_STEPS
+    four = [list(range(N_VIEWS))] * PAR_STEPS
+    worlds = {
+        "gloo_2": (2, "gloo", [
+            ("tiles_padded", "par_render", {"cfg": raster_config(padded)}),
+            ("tiles_exact", "par_render", {"cfg": raster_config(exact2)}),
+            ("tp_street", "par_steps", dict(
+                kind="tp", pipe=exact2, key="street", views=one, n_data=1,
+                n_tile=2)),
+            ("dp", "par_steps", dict(kind="dp", pipe=street_pipe,
+                                     key="street", views=pair, n_data=2,
+                                     n_tile=1)),
+            ("ring", "par_render", {"cfg": raster_config(ring_pipe),
+                                    "ring": True}),
+            ("ring_step", "par_steps", dict(
+                kind="ring", pipe=ring_pipe, key="street", views=one,
+                n_data=1, n_tile=2)),
+            ("dryrun", "dryrun", {"project": str(root / "dryrun")})]),
+        "nccl_1": (1, "nccl" if dev.type == "cuda" else "gloo", [
+            ("dp", "par_steps", dict(kind="dp", pipe=street_pipe,
+                                     key="street", views=pair, n_data=1,
+                                     n_tile=1, repeat=2)),
+            ("tiles_padded", "par_render", {"cfg": raster_config(padded)}),
+            ("dp_reduced_padded", "par_steps", dict(
+                kind="dp", pipe=padded, key="reduced", views=four,
+                n_data=1, n_tile=1)),
+            ("dp_reduced_exact", "par_steps", dict(
+                kind="dp", pipe=exact4, key="reduced", views=four,
+                n_data=1, n_tile=1))]),
+        "gloo_4": (4, "gloo", [
+            ("tp_reduced_padded", "par_steps", dict(
+                kind="tp", pipe=padded, key="reduced", views=four, n_data=2,
+                n_tile=2)),
+            ("tp_reduced_exact", "par_steps", dict(
+                kind="tp", pipe=exact4, key="reduced", views=four, n_data=2,
+                n_tile=2))])}
+    expect = {"tiles_padded": "padded", "tiles_exact": "exact",
+              "tp_street": "exact", "dp": "exact", "ring": "ring",
+              "ring_step": "ring", "dryrun": "all",
+              "dp_reduced_padded": "padded", "dp_reduced_exact": "exact",
+              "tp_reduced_padded": "padded", "tp_reduced_exact": "exact"}
+    res, world_s = {}, {}
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    for wname, (world, backend, cases) in worlds.items():
+        s0 = time.perf_counter()
+        res[wname] = run_world(
+            par_rank, world, root / wname, backend,
+            args=({"device": dev.type, "inputs": str(inputs),
+                   "cases": cases},), timeout_s=PAR_TIMEOUT)
+        world_s[wname] = time.perf_counter() - s0
+    launches = {k: 0 for k in PAR_KERNELS["all"]}
+    runs = {}
+    for wname, ranks in res.items():
+        world, backend, _ = worlds[wname]
+        for case in ranks[0]:
+            per = [r[case] for r in ranks]
+            for i, rec in enumerate(per):
+                for k in PAR_KERNELS[expect[case]]:
+                    if rec["launches"][k] == 0:
+                        raise AssertionError(f"parallel {wname} {case} rank "
+                                             f"{i}: never launched {k}")
+                for k in launches:
+                    launches[k] += rec["launches"][k]
+            if "checksum" in per[0] and case not in ("ring", "ring_step"):
+                if any(r["checksum"] != per[0]["checksum"] for r in per):
+                    raise AssertionError(f"parallel {wname} {case}: the "
+                                         "ranks' replicated results differ")
+            runs[f"{wname}/{case}"] = {
+                "world": world, "backend": backend,
+                "seconds": [r["seconds"] for r in per],
+                "ms_median": [r.get("ms_median") for r in per],
+                "ms": [r.get("ms") for r in per],
+                "transport": [r["transport"] for r in per],
+                "peak_bytes": [r["peak_bytes"] for r in per],
+                "peak_bytes_sum": sum(r["peak_bytes"] for r in per),
+                "launches": [{k: v for k, v in r["launches"].items() if v}
+                             for r in per]}
+    workers_s = time.perf_counter() - t0 - setup_s
+
+    # ---- the serial path in this process, and the checks ----------------
+    checks = {}
+    g2, g1, g4 = res["gloo_2"], res["nccl_1"], res["gloo_4"]
+    rows, cams = scenes["street"]
+
+    def serial_render(cfg):
+        leaves = [r.detach().requires_grad_(True) for r in rows]
+        out = rasterize(*leaves, cams[0], 3, bg0, cfg)
+        torch.mean(out["render"] ** 2).backward()
+        img = torch.cat([out["render"], out["depth"], out["alpha"][None]])
+        return img.detach(), [x.grad for x in leaves], out
+
+    for case, cfg in (("tiles_padded", raster_config(padded)),
+                      ("tiles_exact", raster_config(exact2)),
+                      ("ring", raster_config(ring_pipe))):
+        img, grads, out = serial_render(cfg)
+        got = g2[0][case]
+        got_grads = ([torch.cat([r[case]["grads"][i] for r in g2])
+                      for i in range(5)] if case == "ring"
+                     else got["grads"])
+        checks[case] = {"image": image_within(case, got["image"], img),
+                        "grads": grads_within(case, got_grads, grads),
+                        "overflow": got["overflow"],
+                        "serial_overflow": {
+                            k: int(out[k]) for k in ("tile_overflow",
+                                                     "dup_overflow")}}
+        if case == "tiles_padded":
+            checks[case]["nccl_1"] = {
+                "image": image_within("nccl tiles", g1[0][case]["image"],
+                                      img),
+                "grads": grads_within("nccl tiles", g1[0][case]["grads"],
+                                      grads)}
+        if case == "ring" and (got["overflow"]["pair_overflow"]
+                               or got["overflow"]["tile_overflow"]
+                               or got["overflow"]["dup_overflow"]):
+            raise AssertionError(f"parallel ring: overflow {got['overflow']}")
+        del img, grads, out
+
+    opt = OptimizationConfig()
+
+    def serial_steps(pipe, key, views):
+        srows, scams = scenes[key]
+        params = start_params(srows, 1, dev)
+        n = params.xyz.shape[0]
+        state = init_state(params, torch.ones(n, dtype=torch.bool,
+                                              device=dev), len(scams))
+        step = make_train_step(_meta(n), opt, pipe, extent[key],
+                               sh_degree_schedule=False,
+                               random_background=False)
+        batches = camera_batches(scams, [g.to(dev) for g in gts[key]], dev)
+        losses = []
+        for s in range(PAR_STEPS):
+            v = views[s][0]
+            state, aux = step(state, batches[v],
+                              bg=bgs[key][s, v].to(dev))
+            losses.append(float(aux["loss"]))
+            if int(aux.get("update_skipped", 0)):
+                raise AssertionError(f"serial {key} step skipped")
+        return state_record(state), losses
+
+    def losses_of(rec):
+        return [a["loss"] for a in rec["aux"]]
+
+    for case, pipe in (("tp_street", exact2), ("ring_step", ring_pipe)):
+        want, want_losses = serial_steps(pipe, "street", one)
+        per = [r[case] for r in g2]
+        if case == "ring_step":
+            got = {**per[0]["state"],
+                   "params": {k: torch.cat([r["state"]["params"][k]
+                                            for r in per])
+                              for k in per[0]["state"]["params"]},
+                   **{k: torch.cat([r["state"][k] for r in per])
+                      for k in ("grad_accum", "denom", "max_radii2d")}}
+        else:
+            got = per[0]["state"]
+        checks[case] = states_within(case, got, want, opt, extent["street"],
+                                     losses_of(per[0]), want_losses)
+        checks[case]["aux"] = per[0]["aux"]
+        if any(a.get("update_skipped", 0) or a.get("tile_overflow", 0)
+               for a in per[0]["aux"]):
+            raise AssertionError(f"parallel {case}: {per[0]['aux']}")
+        del want
+    for case, got, want, key in (
+            ("dp", g2[0]["dp"], g1[0]["dp"], "street"),
+            ("tp_reduced_padded", g4[0]["tp_reduced_padded"],
+             g1[0]["dp_reduced_padded"], "reduced"),
+            ("tp_reduced_exact", g4[0]["tp_reduced_exact"],
+             g1[0]["dp_reduced_exact"], "reduced")):
+        checks[case] = states_within(case, got["state"], want["state"], opt,
+                                     extent[key], losses_of(got),
+                                     losses_of(want))
+        checks[case]["aux"] = got["aux"]
+        if any(a.get("update_skipped", 0) for a in got["aux"]):
+            raise AssertionError(f"parallel {case}: {got['aux']}")
+    checks["dp"]["nccl_1_bit_identical_rerun"] = g1[0]["dp"][
+        "bit_identical_rerun"]
+    dry = g2[0]["dryrun"]["record"]
+    for name in ("dp", "tp_padded", "tp_exact", "ring_step"):
+        if not math.isfinite(dry[name]["loss"]):
+            raise AssertionError(f"dry run {name}: loss {dry[name]}")
+    if not dry["full_train"]["merged"] or not all(
+            dry[k]["finite"] for k in ("tiles_padded", "tiles_exact", "ring",
+                                       "hierarchy_cut", "post")):
+        raise AssertionError(f"dry run: {dry}")
+    checks["dryrun"] = {k: v for k, v in dry.items() if k != "transport"}
+    checks["k4_rank_vs_whole"] = [r["tiles_exact"]["k4_rank_vs_whole"]
+                                  for r in g2]
+
+    # The first kernel calls each rank held against the plain versions.
+    held = {"K1 tile0 > 0": g2[1]["tiles_padded"]["held"]["fwd"],
+            "K2 tile0 > 0": g2[1]["tiles_padded"]["held"]["bwd"],
+            "K1 t_mod, per-tile bg": [r["tp_reduced_padded"]["held"]["fwd"]
+                                      for r in g4],
+            "K2 t_mod, per-tile bg": [r["tp_reduced_padded"]["held"]["bwd"]
+                                      for r in g4],
+            "K3 order": [r["tiles_exact"]["held"]["fwd"] for r in g2],
+            "K4 order": [r["tiles_exact"]["held"]["bwd"] for r in g2],
+            "K3 t_mod": [r["tp_reduced_exact"]["held"]["fwd"] for r in g4]
+            + [r["tp_street"]["held"]["fwd"] for r in g2],
+            "K4 t_mod": [r["tp_reduced_exact"]["held"]["bwd"] for r in g4]
+            + [r["tp_street"]["held"]["bwd"] for r in g2]}
+    sync(dev)
+    emit({"phase": "parallel", "seconds": time.perf_counter() - t0,
+          "setup_seconds": setup_s, "worlds_seconds": world_s,
+          "checks_seconds": time.perf_counter() - t0 - setup_s - workers_s,
+          "note": "W ranks share one card: times are not multi-card "
+                  "scaling",
+          "reduced": {"tp (2 x 2) and its dp reference": {
+              "rows": PAR_REDUCED_N, "width": PAR_REDUCED_W,
+              "height": PAR_REDUCED_H, "from": "1M rows at 1920x1088"}},
+          "sizing": sizing, "runs": runs, "checks": checks,
+          "held": held, "launches": launches})
+    return {"launches": launches, "held": held}
+
+
+def _meta(n: int):
+    from street_sparse_3dgs_tpu_torch.models.gaussians import GaussianMeta
+    return GaussianMeta(sh_degree=3, capacity=n)
 
 
 def main() -> int:
@@ -2639,7 +3378,10 @@ def main() -> int:
     # ---- 14. the command line over a two-chunk project (main path, counted)
     ft_rec = full_train_phase(dev, scene, post_rec["project"], street_pipe)
 
-    # ---- 15. kernels at the street shapes of view 0 -----------------------
+    # ---- 15. the multi-rank layer on the card (main path, counted) --------
+    par_rec = parallel_phase(dev, scene, street_pipe)
+
+    # ---- 16. kernels at the street shapes of view 0 -----------------------
     t0 = time.perf_counter()
     counted = {"render": launches_render, "hierarchy": launches_hier,
                "kernel_floor": launches_floor,
@@ -2649,7 +3391,8 @@ def main() -> int:
                "train_street_auto": auto_rec["launches"],
                "post_opt": post_rec["launches"],
                "merge_eval": merge_rec["launches"],
-               "full_train": ft_rec["launches"]}
+               "full_train": ft_rec["launches"],
+               "parallel": par_rec["launches"]}
 
     def launches_of(key):
         by = {p: c[key] for p, c in counted.items() if c[key]}
@@ -2877,6 +3620,16 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in per_stage[key]),
             "timed": "chunk_0_0_train, first step", "live_slots": live,
             **walk, "per_stage": per_stage[key]}
+
+    # K1-K4 at the parallel shapes: each rank's first call (K1 at tile0 >
+    # 0, K1 at t_mod with per-tile backgrounds, K3 over a rank's order, K3
+    # at t_mod, their backwards) held against the plain version in the rank.
+    for prefix, keys in (("K1 ", ("K1 tile0 > 0", "K1 t_mod, per-tile bg")),
+                         ("K2 ", ("K2 tile0 > 0", "K2 t_mod, per-tile bg")),
+                         ("K3 ", ("K3 order", "K3 t_mod")),
+                         ("K4 ", ("K4 order", "K4 t_mod"))):
+        next(k for k in kernels if k["name"].startswith(prefix))[
+            "at_parallel"] = {key[3:]: par_rec["held"][key] for key in keys}
 
     def k5_timing(k5_args, k5_out) -> dict:
         """K5 on a recorded call: device and wall ms, the plain version's,

@@ -205,25 +205,32 @@ def _run_chunks(vcounts: torch.Tensor, first: torch.Tensor, nw: torch.Tensor,
         s = e
 
 
-def _chunk_tiles(s: int, e: int, dev, t_mod: int) -> torch.Tensor:
-    tiles = torch.arange(s, e, device=dev)
-    return tiles % t_mod if t_mod else tiles
+def _order_tiles(last_v: torch.Tensor,
+                 order: torch.Tensor | None) -> torch.Tensor:
+    """The real tiles [n] int64 a plain exact version walks: those of
+    ``order``, else all in tile order."""
+    if order is None:
+        return torch.arange(last_v.shape[0], device=last_v.device)
+    return order.to(torch.int64)
 
 
 def blend_exact_plain(attrs: torch.Tensor, vcounts: torch.Tensor,
                       wt: torch.Tensor, last_v: torch.Tensor,
-                      bg: torch.Tensor, tiles_x: int,
-                      t_mod: int = 0) -> torch.Tensor:
+                      bg: torch.Tensor, tiles_x: int, t_mod: int = 0,
+                      order: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version of K3: each real tile's windows are
-    concatenated into one slot list and blended as in K1."""
+    concatenated into one slot list and blended as in K1.  With ``order``
+    only its tiles are blended and the rows of the others are zero."""
     _, k, _ = attrs.shape
-    out = torch.empty((last_v.shape[0], N_OUT, P), dtype=attrs.dtype,
-                      device=attrs.device)
-    for s, e, v, _, total in _exact_chunks(vcounts, wt, last_v, k,
+    tiles = _order_tiles(last_v, order)
+    alloc = torch.empty if order is None else torch.zeros
+    out = alloc((last_v.shape[0], N_OUT, P), dtype=attrs.dtype,
+                device=attrs.device)
+    for s, e, v, _, total in _exact_chunks(vcounts, wt, last_v[tiles], k,
                                            _PLAIN_ELEMS):
         slots = attrs[v].reshape(e - s, -1, N_CH).transpose(1, 2)
-        out[s:e] = _blend_slots_plain(
-            slots, total, _chunk_tiles(s, e, attrs.device, t_mod), tiles_x,
+        out[tiles[s:e]] = _blend_slots_plain(
+            slots, total, _tile_mod(tiles[s:e], t_mod), tiles_x,
             bg.expand(e - s, 3))
     return out
 
@@ -562,19 +569,23 @@ def blend_exact_bwd_plain(attrs: torch.Tensor, vcounts: torch.Tensor,
                           wt: torch.Tensor, last_v: torch.Tensor,
                           bg: torch.Tensor, saved: torch.Tensor,
                           g_out: torch.Tensor, tiles_x: int,
-                          t_mod: int = 0) -> torch.Tensor:
+                          t_mod: int = 0,
+                          order: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version of K4 (same arguments and result as
     ``blend_exact_bwd``): each real tile's windows as one slot list, as in
     ``blend_exact_plain``, and the slot grads put back into their windows.
-    Budget windows no tile uses stay zero."""
+    Budget windows no tile uses, and with ``order`` the windows of the
+    tiles left out of it, stay zero."""
     _, k, _ = attrs.shape
+    tiles = _order_tiles(last_v, order)
     out = torch.zeros_like(attrs)
-    for s, e, v, valid, total in _exact_chunks(vcounts, wt, last_v, k,
+    for s, e, v, valid, total in _exact_chunks(vcounts, wt, last_v[tiles], k,
                                                _PLAIN_BWD_ELEMS):
+        tt = tiles[s:e]
         slots = attrs[v].reshape(e - s, -1, N_CH).transpose(1, 2)
         d = _blend_slots_bwd_plain(
-            slots, total, _chunk_tiles(s, e, attrs.device, t_mod), tiles_x,
-            bg.expand(e - s, 3), saved[s:e], g_out[s:e])
+            slots, total, _tile_mod(tt, t_mod), tiles_x,
+            bg.expand(e - s, 3), saved[tt], g_out[tt])
         d = d.transpose(1, 2).reshape(e - s, -1, k, N_CH)
         out[v[valid]] = d[valid]
     return out
@@ -652,7 +663,7 @@ def blend_exact_bwd(attrs: torch.Tensor, vcounts: torch.Tensor,
     tensors, one block per entry of ``order`` (int32 real-tile ids;
     ``exact_tile_order`` when not given): a tile left out gets no grads, and
     the order changes no tile's grads.  Runs ``blend_exact_bwd_plain`` on
-    CPU tensors, which ignores ``order``."""
+    CPU tensors, over the tiles of ``order`` alike."""
     dev = attrs.device
     t = last_v.shape[0]
     for name, x in (("saved", saved), ("g_out", g_out)):
@@ -664,7 +675,7 @@ def blend_exact_bwd(attrs: torch.Tensor, vcounts: torch.Tensor,
         _check_order(order, t, "blend_exact_bwd", dev)
     if not _kernel_device(attrs, "blend_exact_bwd"):
         return blend_exact_bwd_plain(attrs, vcounts, wt, last_v, bg, saved,
-                                     g_out, tiles_x, t_mod)
+                                     g_out, tiles_x, t_mod, order)
     return blend_exact_bwd_launch(attrs, vcounts, wt, last_v, bg, saved,
                                   g_out, tiles_x, t_mod, order)
 
@@ -773,25 +784,41 @@ class _BlendPadded(torch.autograd.Function):
         return d, None, g_bg, None, None, None
 
 
+def _outside(order: torch.Tensor, t: int) -> torch.Tensor:
+    """[t, 1, 1] bool: the tiles left out of ``order``."""
+    out = torch.ones((t,), dtype=torch.bool, device=order.device)
+    out[order.to(torch.int64)] = False
+    return out[:, None, None]
+
+
 class _BlendExact(torch.autograd.Function):
+    """K3 under autograd, K4 its backward.  With ``order`` (a rank's tiles)
+    the rows of the other tiles are zero, their cotangent is dropped and
+    K4 walks the tiles of ``order`` alone, so neither the saved rows nor
+    the grads of another rank's windows enter anything summed."""
+
     @staticmethod
     def forward(ctx, attrs, vcounts, wt, last_v, bg, tiles_x, t_mod, order):
         if _kernel_device(attrs, "blend_exact"):
             out = blend_exact_launch(attrs, vcounts, wt, last_v, bg, tiles_x,
                                      t_mod, order, EXACT_GROUP)
+            if order is not None:
+                out.masked_fill_(_outside(order, out.shape[0]), 0.0)
         else:
             out = blend_exact_plain(attrs, vcounts, wt, last_v, bg, tiles_x,
-                                    t_mod)
-        ctx.save_for_backward(attrs, vcounts, wt, last_v, bg, out)
+                                    t_mod, order)
+        ctx.save_for_backward(attrs, vcounts, wt, last_v, bg, out, order)
         ctx.grid = (tiles_x, t_mod)
         return out
 
     @staticmethod
     def backward(ctx, g_out):
-        attrs, vcounts, wt, last_v, bg, saved = ctx.saved_tensors
+        attrs, vcounts, wt, last_v, bg, saved, order = ctx.saved_tensors
         g_out = g_out.to(torch.float32).contiguous()
+        if order is not None:
+            g_out = g_out.masked_fill(_outside(order, g_out.shape[0]), 0.0)
         d = blend_exact_bwd(attrs, vcounts, wt, last_v, bg, saved, g_out,
-                            *ctx.grid)
+                            *ctx.grid, order=order)
         g_bg = background_grad(saved, g_out, False)
         return d, None, None, None, g_bg, None, None, None
 
@@ -823,9 +850,10 @@ def blend_exact(attrs: torch.Tensor, vcounts: torch.Tensor, wt: torch.Tensor,
     wt [T_v] and last_v [T] int32 from exact-mode ``TileBins``; bg [1, 3].
     Returns [T, 8, 256] per real tile.  On CUDA tensors the kernel takes
     the real tiles in tile order, or those of ``order`` (distinct int32
-    tile ids) in that order: a tile left out is not written, and the order
-    changes no tile's rows.  On CPU tensors ``blend_exact_plain`` runs,
-    which ignores ``order``."""
+    tile ids) in that order: a tile left out gets zero rows and no grads
+    (its cotangent is dropped), and the order changes no tile's rows.  On
+    CPU tensors ``blend_exact_plain`` runs, over the tiles of ``order``
+    alike."""
     dev = attrs.device
     _check(attrs, "attrs", torch.float32, 3, dev)
     for name, x in (("vcounts", vcounts), ("wt", wt), ("last_v", last_v)):

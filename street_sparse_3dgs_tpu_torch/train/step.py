@@ -86,6 +86,67 @@ def raster_config(pipe: PipelineConfig) -> RasterConfig:
                         dup_tails=tuple(pipe.dup_tails))
 
 
+def schedules(opt: OptimizationConfig, it: int, spatial_lr_scale: float,
+              optimize_xyz: bool) -> tuple[float, float, float]:
+    """(xyz lr, exposure lr, depth-loss weight) at 1-based step ``it``."""
+    xyz_lr = float(expon_lr(it, opt.position_lr_init * spatial_lr_scale,
+                            opt.position_lr_final * spatial_lr_scale,
+                            lr_delay_mult=opt.position_lr_delay_mult,
+                            max_steps=opt.position_lr_max_steps))
+    if not optimize_xyz:
+        xyz_lr = 0.0
+    exp_lr = float(expon_lr(it, opt.exposure_lr_init, opt.exposure_lr_final,
+                            lr_delay_steps=opt.exposure_lr_delay_steps,
+                            lr_delay_mult=opt.exposure_lr_delay_mult,
+                            max_steps=opt.iterations))
+    depth_w = float(expon_lr(it, opt.depth_l1_weight_init,
+                             opt.depth_l1_weight_final,
+                             max_steps=opt.iterations))
+    return xyz_lr, exp_lr, depth_w
+
+
+def view_loss(render: torch.Tensor, inv_depth: torch.Tensor,
+              batch: CameraBatch, exposure_row: torch.Tensor | None,
+              opt: OptimizationConfig, depth_w: float,
+              depth_maps_weight: float, depth_only: bool):
+    """(loss, image) of one view: the photometric loss of the image (the
+    exposure affine applied unless ``exposure_row`` is None, clamped) plus
+    the reliable depth term; for a depth-only view the hinge + pure depth
+    loss (zero where the view's depth is not reliable)."""
+    image = render if exposure_row is None else apply_exposure(render,
+                                                               exposure_row)
+    image = torch.clamp(image, 0.0, 1.0)
+    zero = torch.zeros((), device=image.device)
+    pure = losses.depth_l1(inv_depth, batch.mono_invdepth, batch.depth_mask)
+    if depth_only:
+        hinge = losses.depth_hinge(inv_depth, batch.mono_invdepth)
+        w = depth_maps_weight
+        loss = depth_w * (w * hinge + (1.0 - w) * pure)
+        return torch.where(batch.depth_reliable, loss, zero), image
+    loss = losses.photometric(image * batch.alpha_mask, batch.gt_image,
+                              opt.lambda_dssim)
+    return loss + torch.where(batch.depth_reliable, depth_w * pure,
+                              zero), image
+
+
+def mask_grads(meta: GaussianMeta, g_params: GaussianParams,
+               rows: torch.Tensor,
+               zero_scaling_grads_for_skybox: bool) -> GaussianParams:
+    """Locked skybox rows get no grads, and the skybox's scales none under
+    ``zero_scaling_grads_for_skybox``; ``rows`` are the grads' global row
+    ids."""
+    if meta.skybox_locked and meta.skybox_points > 0:
+        locked = rows < meta.skybox_points
+        g_params = GaussianParams(*(torch.where(
+            locked.reshape((-1,) + (1,) * (g.dim() - 1)),
+            torch.zeros_like(g), g) for g in g_params))
+    if zero_scaling_grads_for_skybox and meta.skybox_points > 0:
+        sky = (rows < meta.skybox_points)[:, None]
+        g_params = g_params._replace(log_scales=torch.where(
+            sky, torch.zeros_like(g_params.log_scales), g_params.log_scales))
+    return g_params
+
+
 def _select(ok: torch.Tensor, new, old):
     """``where(ok, new, old)`` over a (nested) NamedTuple of tensors;
     ``None`` leaves stay ``None``."""
@@ -131,23 +192,8 @@ class TrainStep:
 
     # -- schedules --------------------------------------------------------
     def _lrs(self, it: int):
-        opt = self.opt
-        xyz_lr = float(expon_lr(it, opt.position_lr_init
-                                * self.spatial_lr_scale,
-                                opt.position_lr_final * self.spatial_lr_scale,
-                                lr_delay_mult=opt.position_lr_delay_mult,
-                                max_steps=opt.position_lr_max_steps))
-        if not self.optimize_xyz:
-            xyz_lr = 0.0
-        exp_lr = float(expon_lr(it, opt.exposure_lr_init,
-                                opt.exposure_lr_final,
-                                lr_delay_steps=opt.exposure_lr_delay_steps,
-                                lr_delay_mult=opt.exposure_lr_delay_mult,
-                                max_steps=opt.iterations))
-        depth_w = float(expon_lr(it, opt.depth_l1_weight_init,
-                                 opt.depth_l1_weight_final,
-                                 max_steps=opt.iterations))
-        return xyz_lr, exp_lr, depth_w
+        return schedules(self.opt, it, self.spatial_lr_scale,
+                         self.optimize_xyz)
 
     def active_sh(self, state: TrainState) -> int:
         """SH warm-up: +1 degree every 1000 steps up to the model's."""
@@ -175,24 +221,10 @@ class TrainStep:
                         sh_coeffs(params), batch.camera, active_sh, bg,
                         self.cfg, active_mask=active,
                         mean2d_residual=mean2d_res)
-        image = out["render"]
-        if self.use_exp:
-            image = apply_exposure(image, exposure_row)
-        image = torch.clamp(image, 0.0, 1.0)
-        inv_depth = out["depth"]
-        zero = torch.zeros((), device=image.device)
-        pure = losses.depth_l1(inv_depth, batch.mono_invdepth,
-                               batch.depth_mask)
-        if self.is_depth_only:
-            hinge = losses.depth_hinge(inv_depth, batch.mono_invdepth)
-            w = self.depth_maps_weight
-            loss = depth_w * (w * hinge + (1.0 - w) * pure)
-            loss = torch.where(batch.depth_reliable, loss, zero)
-        else:
-            loss = losses.photometric(image * batch.alpha_mask,
-                                      batch.gt_image, self.opt.lambda_dssim)
-            loss = loss + torch.where(batch.depth_reliable, depth_w * pure,
-                                      zero)
+        loss, image = view_loss(
+            out["render"], out["depth"], batch,
+            exposure_row if self.use_exp else None, self.opt, depth_w,
+            self.depth_maps_weight, self.is_depth_only)
         return loss, image, out
 
     def value_and_grad(self, state: TrainState, batch: CameraBatch,
@@ -230,17 +262,9 @@ class TrainStep:
 
         with torch.no_grad():
             capacity = state.params.xyz.shape[0]
-            rows = torch.arange(capacity, device=dev)
-            if meta.skybox_locked and meta.skybox_points > 0:
-                locked = rows < meta.skybox_points
-                g_params = GaussianParams(*(torch.where(
-                    locked.reshape((-1,) + (1,) * (g.dim() - 1)),
-                    torch.zeros_like(g), g) for g in g_params))
-            if self.zero_sky_scales and meta.skybox_points > 0:
-                sky = (rows < meta.skybox_points)[:, None]
-                g_params = g_params._replace(log_scales=torch.where(
-                    sky, torch.zeros_like(g_params.log_scales),
-                    g_params.log_scales))
+            g_params = mask_grads(meta, g_params,
+                                  torch.arange(capacity, device=dev),
+                                  self.zero_sky_scales)
             if self.is_depth_only:
                 g_params = g_params._replace(
                     features_dc=torch.zeros_like(g_params.features_dc),

@@ -259,3 +259,50 @@ def test_k4_launch_order(layout):
     with pytest.raises(ValueError, match="order"):
         cb.blend_exact_bwd(*args, order=torch.zeros(t + 1,
                                                     dtype=torch.int32))
+
+
+@pytest.mark.parametrize("split", ["first_half", "second_half", "deepest"])
+def test_k3_order_through_autograd(split):
+    """``blend_exact(..., order=)`` under autograd, as a rank of the
+    tile-sharded exact render calls it: the rows of the tiles left out of
+    ``order`` are zero; K4 walks the order's tiles alone, so the attrs
+    grads equal the unrestricted call's on those tiles' windows and are
+    zero on every other window; the background grad sums the order's tiles
+    alone.  The cotangent is nonzero on every tile, so a left-out tile's
+    cotangent reaching the backward would show."""
+    attrs, vcounts, wt, last_v, tiles_x = toy_exact_layout()
+    t = last_v.shape[0]
+    order = {"first_half": torch.arange(t // 2),
+             "second_half": torch.arange(t // 2, t),
+             "deepest": cb.exact_tile_order(wt, last_v)[:3].to(
+                 torch.int64).flip(0)}[split].to(torch.int32)
+    g_out = torch.tensor(np.random.default_rng(41).normal(
+        0, 1, (t, 8, 256)).astype(np.float32))
+
+    def run(order_):
+        a = attrs.clone().requires_grad_(True)
+        bg = torch.tensor([[0.3, 0.2, 0.1]], requires_grad=True)
+        out = cb.blend_exact(a, vcounts, wt, last_v, bg, tiles_x,
+                             order=order_)
+        torch.sum(out * g_out).backward()
+        return out.detach(), a.grad, bg.grad
+
+    out_all, d_all, gbg_all = run(None)
+    out_sub, d_sub, gbg_sub = run(order)
+    mine = torch.zeros(t, dtype=torch.bool)
+    mine[order.to(torch.int64)] = True
+    assert torch.equal(out_sub[mine], out_all[mine])
+    assert not out_sub[~mine].any()
+    # Windows of the order's tiles: [last_v - wt[last_v], last_v].
+    v_last = last_v.to(torch.int64)[mine]
+    v_first = v_last - wt.to(torch.int64)[v_last]
+    win = torch.zeros(attrs.shape[0], dtype=torch.bool)
+    for a, b in zip(v_first.tolist(), v_last.tolist()):
+        win[a:b + 1] = True
+    assert d_all[win].any()
+    assert torch.equal(d_sub[win], d_all[win])
+    assert not d_sub[~win].any()
+    t_final = torch.exp(out_all[mine, cb.OT])
+    want_bg = torch.sum(t_final[:, None] * g_out[mine, :3], dim=(0, 2))
+    np.testing.assert_allclose(gbg_sub[0].numpy(), want_bg.numpy(),
+                               rtol=1e-5)

@@ -10,8 +10,8 @@ launch order and the warp skip of ``csrc/blend_fwd.cuh``), on CPU tensors:
   log T; n_contrib equal to the plain version's, and to min(nc_jax, count)
   for JAX, whose n_contrib also counts padding lanes);
 - ``alpha_skip_threshold``, which the kernels' skip threshold mirrors;
-- ``blend_exact(order=)``'s checks, and its plain version's indifference
-  to the order.
+- ``blend_exact(order=)``'s checks, and its plain version's rows for an
+  order of all the tiles (the same) or some (zero elsewhere).
 
 ``chip_smoke.py`` holds the CUDA kernels against these plain versions on
 the card."""
@@ -255,7 +255,9 @@ def test_skip_threshold_never_skips_a_passing_slot():
 def test_blend_exact_order_checked_and_ignored_on_cpu():
     """``blend_exact(order=)`` refuses an order of the wrong type, rank or
     length, or with an id out of range or repeated; on CPU tensors (the
-    plain version) every valid order gives the same rows."""
+    plain version) every order of all the tiles gives the same rows, and an
+    order of some of them gives those tiles' rows and zero rows elsewhere,
+    as the kernel path does."""
     rng = np.random.default_rng(5)
     tile_counts = [0, 300, 128, 129, 40, 512]
     vcounts, wt, last_v, _ = exact_layout(tile_counts, K, 2)
@@ -273,8 +275,14 @@ def test_blend_exact_order_checked_and_ignored_on_cpu():
     t = last_v.shape[0]
     deepest = cb.exact_tile_order(args[2], args[3])
     for order in (deepest, deepest.flip(0).contiguous(),
-                  torch.arange(t, dtype=torch.int32), deepest[:1].clone()):
+                  torch.arange(t, dtype=torch.int32)):
         assert torch.equal(cb.blend_exact(*args, TILES_X, order=order), want)
+    one = deepest[:1].clone()
+    got = cb.blend_exact(*args, TILES_X, order=one)
+    mine = torch.zeros(t, dtype=torch.bool)
+    mine[one.to(torch.int64)] = True
+    assert torch.equal(got[mine], want[mine])
+    assert not got[~mine].any()
     bad = (deepest.to(torch.int64), deepest[None, :].contiguous(),
            torch.zeros(t + 1, dtype=torch.int32),
            torch.tensor([0, t], dtype=torch.int32),
