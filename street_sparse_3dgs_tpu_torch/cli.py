@@ -284,12 +284,63 @@ def full_train(argv):
         host_id=args.host_id, num_hosts=args.num_hosts, device=args.device)
 
 
+def mask_images_parser():
+    import argparse
+
+    p = argparse.ArgumentParser(prog="mask-images")
+    p.add_argument("--project_dir", required=True)
+    p.add_argument("--process_6_images", action="store_true")
+    p.add_argument("--detections_dir", default=None,
+                   help="precomputed per-image .npz detections; default "
+                        "runs torchvision Mask R-CNN if installed")
+    p.add_argument("--batch", choices=["confirm-all", "reject-all"],
+                   default=None, help="skip the web UI and decide "
+                        "uniformly for every confirmation-class instance")
+    p.add_argument("--port", type=int, default=5001)
+    p.add_argument("--device", default="cuda",
+                   help="device of the torchvision detector")
+    return p
+
+
+def mask_images_cmd(argv):
+    """Moving-object mask generation (``ss_utils/mask_images.py`` analog):
+    interactive (HTTP confirmation UI) or batch with a fixed decision."""
+    from .preprocess import mask_images as mi
+
+    args = mask_images_parser().parse_args(argv)
+    detector = (mi.precomputed_detector(args.detections_dir)
+                if args.detections_dir
+                else mi.torchvision_detector(device=args.device))
+    if args.batch:
+        n = mi.process_images(
+            args.project_dir, detector,
+            decide=lambda *_: args.batch == "confirm-all",
+            process_6_images=args.process_6_images)
+    else:
+        srv = mi.ConfirmationServer(
+            args.project_dir, detector, port=args.port,
+            process_6_images=args.process_6_images)
+        print(f"confirmation UI on http://127.0.0.1:{args.port}/")
+        n = srv.serve()
+    print(f"wrote {n} masks")
+
+
+def viewer_cmd(argv):
+    """Standalone interactive web viewer (the SIBR viewer app analogue),
+    rendering on ``--device`` (the card by default)."""
+    from .viewer.app import main as viewer_main
+
+    viewer_main(argv)
+
+
 COMMANDS = {
     "train-coarse": train_coarse,
     "train-single": train_single,
     "train-post": train_post,
     "render-hierarchy": render_hierarchy,
     "full-train": full_train,
+    "mask-images": mask_images_cmd,
+    "viewer": viewer_cmd,
 }
 
 

@@ -141,3 +141,37 @@ def to_numpy(x) -> dict:
         else:
             out[k] = v
     return out
+
+
+def depth_anything_from_numpy(params, cfg, device=DEFAULT_DEVICE):
+    """The port's Depth-Anything module (``preprocess.depth_anything``) on
+    ``device`` with the weights of the JAX param pytree (``depth_anything_
+    jax.convert_torch_state``'s ``params``, as numpy) and ``cfg`` a
+    ``DAV2Config`` of either package: nested keys joined by dots, ``w``/
+    ``b`` and the ``norm*_w``/``_b`` leaves as ``weight``/``bias``."""
+    from .preprocess.depth_anything import DAV2Config, build_model
+
+    state = {}
+
+    def walk(prefix: str, x):
+        if isinstance(x, Mapping):
+            for k, v in x.items():
+                walk(f"{prefix}.{k}" if prefix else str(k), v)
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                walk(f"{prefix}.{i}", v)
+        elif x is not None:
+            key = prefix
+            for a, b in ((".w", ".weight"), (".b", ".bias"), ("_w", ".weight"),
+                         ("_b", ".bias")):
+                if key.endswith(a):
+                    key = key[:-len(a)] + b
+                    break
+            if key.startswith("rn.") and not key.endswith(".weight"):
+                key += ".weight"
+            state[key] = torch.as_tensor(np.array(x, np.float32))
+
+    walk("", params)
+    cfg = DAV2Config(**{f.name: getattr(cfg, f.name)
+                        for f in dataclasses.fields(DAV2Config)})
+    return build_model(state, cfg, device)

@@ -227,44 +227,76 @@ def write_images_text(images: dict[int, ColmapImage], path) -> None:
 # points3D
 
 
+# One points3D.bin record before its track: id, xyz, rgb, error, track
+# length (51 bytes, unaligned).
+_POINT_RECORD = np.dtype([("id", "<u8"), ("xyz", "<f8", 3), ("rgb", "u1", 3),
+                          ("error", "<f8"), ("tlen", "<u8")])
+
+
 def read_points3d_binary(path) -> ColmapPoints:
-    xyzs, rgbs, errs, ids = [], [], [], []
-    t_img, t_p2d = [], []
-    with open(path, "rb") as f:
-        (n,) = struct.unpack("<Q", f.read(8))
-        for _ in range(n):
-            vals = struct.unpack("<QdddBBBd", f.read(43))
-            ids.append(vals[0])
-            xyzs.append(vals[1:4])
-            rgbs.append(vals[4:7])
-            errs.append(vals[7])
-            (tlen,) = struct.unpack("<Q", f.read(8))
-            track = np.frombuffer(f.read(8 * tlen), dtype=np.int32)
-            t_img.append(track[0::2].copy())
-            t_p2d.append(track[1::2].copy())
+    """points3D.bin; the records are located by one pass over the track
+    lengths and read as numpy views."""
+    data = Path(path).read_bytes()
+    (n,) = struct.unpack_from("<Q", data, 0)
+    if n == 0:      # as the JAX reader gives an empty file: flat arrays
+        return ColmapPoints(xyz=np.array([]), rgb=np.array([], np.uint8),
+                            error=np.array([]),
+                            ids=np.array([], np.int64),
+                            track_image_ids=[], track_point2d_idxs=[])
+    size = _POINT_RECORD.itemsize
+    starts = np.empty(n, np.int64)
+    pos = 8
+    for i in range(n):
+        starts[i] = pos
+        pos += size + 8 * int.from_bytes(data[pos + 43:pos + 51], "little")
+    raw = np.frombuffer(data, np.uint8)
+    rec = raw[starts[:, None] + np.arange(size)].copy().view(
+        _POINT_RECORD).reshape(n)
+    tlen = rec["tlen"].astype(np.int64)
+    nb = 8 * tlen
+    first = np.cumsum(nb) - nb
+    idx = np.repeat(starts + size - first, nb) + np.arange(int(nb.sum()))
+    track = raw[idx].view(np.int32).reshape(-1, 2)
+    cuts = np.cumsum(tlen)[:-1]
+    t_img = np.split(np.ascontiguousarray(track[:, 0]), cuts)
+    t_p2d = np.split(np.ascontiguousarray(track[:, 1]), cuts)
     return ColmapPoints(
-        xyz=np.array(xyzs), rgb=np.array(rgbs, np.uint8),
-        error=np.array(errs), ids=np.array(ids, np.int64),
+        xyz=rec["xyz"].astype(np.float64), rgb=rec["rgb"].astype(np.uint8),
+        error=rec["error"].astype(np.float64),
+        ids=rec["id"].astype(np.int64),
         track_image_ids=t_img, track_point2d_idxs=t_p2d)
 
 
 def write_points3d_binary(pts: ColmapPoints, path) -> None:
+    """points3D.bin, the records and tracks laid out with numpy."""
     n = pts.xyz.shape[0]
-    with open(path, "wb") as f:
-        f.write(struct.pack("<Q", n))
-        for i in range(n):
-            f.write(struct.pack("<QdddBBBd", int(pts.ids[i]), *pts.xyz[i],
-                                *pts.rgb[i].astype(np.uint8),
-                                float(pts.error[i])))
-            ti = (pts.track_image_ids[i] if pts.track_image_ids
-                  else np.zeros(0, np.int32))
-            tp = (pts.track_point2d_idxs[i] if pts.track_point2d_idxs
-                  else np.zeros(0, np.int32))
-            f.write(struct.pack("<Q", len(ti)))
-            track = np.empty(2 * len(ti), np.int32)
-            track[0::2] = ti
-            track[1::2] = tp
-            f.write(track.tobytes())
+    if pts.track_image_ids:
+        tlen = np.array([len(t) for t in pts.track_image_ids], np.int64)
+    else:
+        tlen = np.zeros(n, np.int64)
+    rec = np.empty(n, _POINT_RECORD)
+    rec["id"] = np.asarray(pts.ids, np.int64).astype(np.uint64)
+    rec["xyz"] = pts.xyz
+    rec["rgb"] = np.asarray(pts.rgb).astype(np.uint8)
+    rec["error"] = pts.error
+    rec["tlen"] = tlen
+    size = _POINT_RECORD.itemsize
+    starts = 8 + size * np.arange(n, dtype=np.int64) + 8 * (
+        np.cumsum(tlen) - tlen)
+    buf = np.zeros(8 + size * n + 8 * int(tlen.sum()), np.uint8)
+    buf[:8] = np.frombuffer(struct.pack("<Q", n), np.uint8)
+    buf[starts[:, None] + np.arange(size)] = rec.view(np.uint8).reshape(
+        n, size)
+    if tlen.any():
+        track = np.empty((int(tlen.sum()), 2), np.int32)
+        track[:, 0] = np.concatenate(pts.track_image_ids)
+        track[:, 1] = np.concatenate(pts.track_point2d_idxs)
+        rows = np.repeat(starts + size, tlen) + 8 * (
+            np.arange(int(tlen.sum())) - np.repeat(np.cumsum(tlen) - tlen,
+                                                   tlen))
+        buf[rows[:, None] + np.arange(8)] = track.view(np.uint8).reshape(
+            -1, 8)
+    Path(path).write_bytes(buf.tobytes())
 
 
 def read_points3d_text(path) -> ColmapPoints:

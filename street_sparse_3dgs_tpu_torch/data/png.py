@@ -1,5 +1,5 @@
 """Image IO without PIL or OpenCV: a PNG reader and writer on the standard
-library's ``zlib``, the colour conversions and the nearest-neighbour resize
+library's ``zlib``, the colour conversions and the two resizes
 the scene loader and the eval need.
 
 The JAX package decodes images with PIL and resizes depth maps with
@@ -12,13 +12,10 @@ the card's machine.  This module gives the same arrays:
 - ``to_rgb`` / ``to_grey`` are PIL's ``convert("RGB")`` / ``convert("L")``
   (integer ITU-R 601-2 luma, as ``Convert.c`` rounds it);
 - ``resize_nearest`` is cv2's ``INTER_NEAREST`` index rule,
-  ``src = floor(dst * src_size / dst_size)`` clamped to the last index.
-
-Where PIL is still needed — a file that is not a PNG (JPEG input), or a
-bicubic resize to another size (PIL's default ``resize``) — it is imported
-at that call and its absence raises an ``ImportError`` that names the file
-and the reason.  Loading an image at its own size resizes nothing: PIL
-returns a copy then.
+  ``src = floor(dst * src_size / dst_size)`` clamped to the last index;
+- ``resize_bicubic`` is PIL's default ``Image.resize`` (bicubic), bit for
+  bit;
+- ``read_image`` reads a PNG here and a JPEG through ``data/jpeg.py``.
 """
 
 from __future__ import annotations
@@ -132,9 +129,9 @@ def read_png(path) -> np.ndarray:
                        else (height, width, channels))
 
 
-def write_png(path, image: np.ndarray, level: int = 6) -> None:
-    """Write [H, W] / [H, W, 3] / [H, W, 4] uint8 (grey, RGB, RGBA) or
-    [H, W] uint16 (16-bit grey), every row unfiltered."""
+def encode_png(image: np.ndarray, level: int = 6) -> bytes:
+    """PNG bytes of [H, W] / [H, W, 3] / [H, W, 4] uint8 (grey, RGB, RGBA)
+    or [H, W] uint16 (16-bit grey), every row unfiltered."""
     a = np.asarray(image)
     if a.dtype == np.uint16 and a.ndim == 2:
         depth, colour, data = 16, 0, a.astype(">u2")
@@ -153,29 +150,28 @@ def write_png(path, image: np.ndarray, level: int = 6) -> None:
         return (struct.pack(">I", len(body)) + kind + body
                 + struct.pack(">I", zlib.crc32(kind + body)))
 
-    Path(path).write_bytes(
-        _SIGNATURE
-        + chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, depth,
-                                     colour, 0, 0, 0))
-        + chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
-        + chunk(b"IEND", b""))
+    return (_SIGNATURE
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, depth,
+                                         colour, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
+            + chunk(b"IEND", b""))
 
 
-def _pil(path, why: str):
-    try:
-        from PIL import Image
-    except ImportError as e:
-        raise ImportError(f"{path}: {why} needs PIL, which is not "
-                          "installed") from e
-    return Image
+def write_png(path, image: np.ndarray, level: int = 6) -> None:
+    """``encode_png`` to a file."""
+    Path(path).write_bytes(encode_png(image, level))
 
 
 def read_image(path) -> np.ndarray:
-    """A PNG through ``read_png``; any other file (JPEG) through PIL."""
+    """A PNG through ``read_png``, a JPEG through ``data/jpeg``; any other
+    file raises naming it."""
     if is_png(path):
         return read_png(path)
-    return np.asarray(_pil(path, "decoding a file that is not a PNG")
-                      .open(path))
+    from .jpeg import is_jpeg, read_jpeg
+
+    if is_jpeg(path):
+        return read_jpeg(path)
+    raise ValueError(f"{path}: neither a PNG nor a JPEG file")
 
 
 def to_rgb(a: np.ndarray) -> np.ndarray:
@@ -195,13 +191,80 @@ def to_grey(a: np.ndarray) -> np.ndarray:
              + 0x8000) >> 16).astype(np.uint8)
 
 
-def resize_bicubic(a: np.ndarray, size: tuple[int, int], path) -> np.ndarray:
-    """PIL's default ``resize(size)`` (bicubic) of an 8-bit array; the
-    array itself when ``size`` (W, H) is its own."""
-    if (a.shape[1], a.shape[0]) == tuple(size):
+# Pillow's Resample.c: 8-bit coefficients carry 22 fraction bits.
+_PRECISION_BITS = 32 - 8 - 2
+
+
+def _bicubic(x: np.ndarray) -> np.ndarray:
+    """Resample.c's ``bicubic_filter`` (a = -0.5), term for term."""
+    a = -0.5
+    x = np.abs(x)
+    near = ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    far = (((x - 5) * x + 8) * x - 4) * a
+    return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
+
+
+def _coeffs(in_size: int, out_size: int):
+    """Resample.c ``precompute_coeffs`` + ``normalize_coeffs_8bpc`` for the
+    box (0, in_size): per output index the first input index, the tap
+    count and the int32 fixed-point weights ([out, ksize], zero past the
+    taps)."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    center = (np.arange(out_size) + 0.5) * scale
+    xmin = np.maximum(np.trunc(center - support + 0.5), 0).astype(np.int64)
+    xmax = np.minimum(np.trunc(center + support + 0.5),
+                      in_size).astype(np.int64) - xmin
+    taps = np.arange(ksize)
+    live = taps[None, :] < xmax[:, None]
+    w = np.where(live, _bicubic((taps[None, :] + xmin[:, None] - center[:, None]
+                                 + 0.5) * (1.0 / filterscale)), 0.0)
+    # Sum tap by tap in order, as the C loop does.
+    ww = np.zeros(out_size)
+    for k in range(ksize):
+        ww = ww + w[:, k]
+    w = np.where(ww[:, None] != 0.0, w / np.where(ww == 0.0, 1.0, ww)[:, None],
+                 w)
+    fixed = w * (1 << _PRECISION_BITS)
+    kk = np.trunc(np.where(w < 0, fixed - 0.5, fixed + 0.5)).astype(np.int64)
+    return xmin, xmax, np.where(live, kk, 0)
+
+
+def _resample_axis(a: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One pass of ``ImagingResampleHorizontal/Vertical_8bpc`` along
+    ``axis`` of a uint8 array: sum of taps in int64 from 2^21, clipped to
+    uint8 after the shift."""
+    a = np.moveaxis(a, axis, 0)
+    xmin, xmax, kk = _coeffs(a.shape[0], out_size)
+    idx = np.minimum(xmin[:, None] + np.arange(kk.shape[1])[None, :],
+                     a.shape[0] - 1)
+    acc = np.full((out_size,) + a.shape[1:], 1 << (_PRECISION_BITS - 1),
+                  np.int64)
+    expand = (slice(None),) + (None,) * (a.ndim - 1)
+    for k in range(kk.shape[1]):
+        acc += a[idx[:, k]].astype(np.int64) * kk[:, k][expand]
+    out = np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+    return np.moveaxis(out, 0, axis)
+
+
+def resize_bicubic(a: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """PIL's default ``Image.resize(size)`` (bicubic, ``ImagingResample``)
+    of an 8-bit [H, W] or [H, W, C] array, bit for bit: a horizontal pass,
+    then a vertical one, each rounded and clipped to uint8; the array
+    itself when ``size`` (W, H) is its own."""
+    w, h = size
+    if (a.shape[1], a.shape[0]) == (w, h):
         return a
-    image = _pil(path, f"a bicubic resize to {size[0]}x{size[1]}")
-    return np.asarray(image.fromarray(a).resize(tuple(size)))
+    if a.dtype != np.uint8:
+        raise ValueError(f"resize_bicubic: {a.dtype} is not 8-bit")
+    out = a
+    if a.shape[1] != w:
+        out = _resample_axis(out, w, 1)
+    if a.shape[0] != h:
+        out = _resample_axis(out, h, 0)
+    return out
 
 
 def resize_nearest(a: np.ndarray, size: tuple[int, int]) -> np.ndarray:
@@ -215,3 +278,20 @@ def resize_nearest(a: np.ndarray, size: tuple[int, int]) -> np.ndarray:
     xs = np.minimum(np.floor(np.arange(w) * (w_in / w)).astype(np.int64),
                     w_in - 1)
     return a[ys[:, None], xs[None, :]]
+
+
+def resize_nearest_pil(a: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """PIL's ``Image.resize(size, Image.NEAREST)`` (Geometry.c
+    ``ImagingScaleAffine``): output x reads input int(x0 + x·s) with
+    x0 = s/2, s = w_in/w, the positions summed step by step in float64 as
+    the C loop sums them."""
+    w, h = size
+    h_in, w_in = a.shape[:2]
+
+    def index(n_in: int, n_out: int) -> np.ndarray:
+        s = n_in / n_out
+        pos = np.add.accumulate(np.concatenate(
+            [[s * 0.5], np.full(n_out - 1, s)]))
+        return np.minimum(pos.astype(np.int64), n_in - 1)
+
+    return a[index(h_in, h)[:, None], index(w_in, w)[None, :]]

@@ -13,9 +13,9 @@
     ``resolution == -1``), 16-bit PNG inverse-depth scaled by
     ``{scale, offset}``, producing ``CameraBatch`` tuples on ``device``.
 
-Images decode through ``data/png.py`` (no PIL or OpenCV on a PNG project
-loaded at its own size); JPEG input and bicubic resizes to another size
-need PIL.
+Images decode through ``data/png.py`` and ``data/jpeg.py`` and resize
+through ``png.resize_bicubic`` (PIL's bicubic, bit for bit): no PIL or
+OpenCV is needed for PNG or JPEG projects at any resolution.
 """
 
 from __future__ import annotations
@@ -210,7 +210,7 @@ def load_camera_arrays(info: CameraInfo, resolution: int = -1,
 
     if info.image_path and Path(info.image_path).exists():
         rgb = png.to_rgb(png.read_image(info.image_path))
-        img = png.resize_bicubic(rgb, (w, h), info.image_path)
+        img = png.resize_bicubic(rgb, (w, h))
         gt = np.asarray(img, np.float32).transpose(2, 0, 1) / 255.0
     else:
         gt = np.zeros((3, h, w), np.float32)  # depth-only: dummy black image
@@ -218,7 +218,7 @@ def load_camera_arrays(info: CameraInfo, resolution: int = -1,
     alpha = np.ones((1, h, w), np.float32)
     if info.mask_path and Path(info.mask_path).exists():
         grey = png.to_grey(png.read_image(info.mask_path))
-        m = png.resize_bicubic(grey, (w, h), info.mask_path)
+        m = png.resize_bicubic(grey, (w, h))
         alpha = (np.asarray(m, np.float32)[None] / 255.0)
 
     if train_test_exp and info.is_test:

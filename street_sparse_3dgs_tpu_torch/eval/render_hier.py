@@ -118,7 +118,7 @@ def render_hierarchy_eval(
                     if seg_path.exists():
                         seg = png.resize_bicubic(
                             png.to_rgb(png.read_image(seg_path)),
-                            (image.shape[2], image.shape[1]), seg_path)
+                            (image.shape[2], image.shape[1]))
                         seg = torch.as_tensor(seg, device=dev).permute(
                             2, 0, 1).to(torch.float32) / 255.0
                         cats = metrics.category_masks(

@@ -412,14 +412,14 @@ def test_full_train_command_and_rerun(project, tmp_path, monkeypatch):
 
 def test_unknown_command_prints_usage(capsys):
     """As JAX's main: no command or an unknown one prints the usage and
-    returns 1; mask-images and viewer are not ported yet."""
-    for argv in ([], ["nope"], ["mask-images"], ["viewer"]):
+    returns 1; the port has every command of JAX's (mask-images and
+    viewer: tests/test_torch_viewer_app.py)."""
+    for argv in ([], ["nope"]):
         assert tcli.main(argv) == 1
     out = capsys.readouterr().out
     assert out.count("usage: python -m street_sparse_3dgs_tpu_torch.cli") \
-        == 4
-    assert set(tcli.COMMANDS) == set(jcli.COMMANDS) - {"mask-images",
-                                                       "viewer"}
+        == 2
+    assert set(tcli.COMMANDS) == set(jcli.COMMANDS)
 
 
 @pytest.mark.parametrize("command", ["train-coarse", "train-single",

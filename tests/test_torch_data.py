@@ -268,8 +268,8 @@ def test_camera_stream_matches_jax(tmp_path, case, num_workers):
 
 @pytest.mark.parametrize("resolution", [2, -1])
 def test_camera_stream_resized_and_jpeg_match_jax(tmp_path, resolution):
-    """JPEG input and a bicubic resize to half size go through PIL, as in
-    the JAX package, and give its arrays (depth resized by the
+    """JPEG input and a bicubic resize to half size, decoded and resized
+    without PIL, give the JAX package's arrays (depth resized by the
     nearest-neighbour rule)."""
     cfg_kw = dict(eval=True, depths="depths", alpha_masks="masks")
     info_j, info_t = scene_pair(tmp_path, cfg_kw, with_masks=True,
@@ -418,13 +418,13 @@ def test_resize_nearest_matches_cv2(size):
 
 
 def test_resize_bicubic_matches_pil(tmp_path):
-    """To another size through PIL's default resize; at the image's own
-    size, the image itself."""
+    """To another size as PIL's default resize; at the image's own size,
+    the image itself."""
     from PIL import Image
 
     a = np.random.default_rng(0).integers(0, 255, (48, 64, 3)).astype(
         np.uint8)
     np.testing.assert_array_equal(
-        png.resize_bicubic(a, (32, 24), "x"),
+        png.resize_bicubic(a, (32, 24)),
         np.asarray(Image.fromarray(a).resize((32, 24))))
-    assert png.resize_bicubic(a, (64, 48), "x") is a
+    assert png.resize_bicubic(a, (64, 48)) is a

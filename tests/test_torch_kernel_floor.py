@@ -6,7 +6,10 @@ batch as that tool pads it.  Levels 0, -1 and -2 must be equal; levels 2 and
 1 (f32 sums in another order) within rtol 1e-5.  The plain twin of the
 stubs' window split (``blend_exact_stub_split_plain``, on K3's block
 tables) against the closed form and against the TPU stubs in interpret
-mode, within ``stub_error``'s bars."""
+mode, within ``stub_error``'s bars.  The port's own math level (3, K3's
+per-step work up to its termination, which the TPU tool lacks) against an
+f32 slot-by-slot numpy walk and the plain K3, its split twin, its bound
+and ``split_of``'s math share."""
 
 import functools
 
@@ -185,7 +188,7 @@ def test_wrapper_checks_and_bound():
     with pytest.raises(ValueError):
         kf.blend_exact_stub(a, *args, 2, False)
     with pytest.raises(ValueError):
-        kf.blend_exact_stub(a, *args, 3, True)
+        kf.blend_exact_stub(a, *args, 4, True)
     blocks = -(-np.minimum(vcounts, kf.KCAP) // 128)
     used = int((wt[last_v] + 1).sum())
     _, by, walked = kf.stub_bound(*args[:3], kf.KCAP, 2)
@@ -280,3 +283,145 @@ def test_bound_counts_phase_a(group):
     assert kf.stub_bound(*args, kf.KCAP, 2, group)[2] == want * 128
     assert kf.stub_bound(*args, kf.KCAP, 2, 0)[2] == \
         int(blocks[:int((wt[last_v] + 1).sum())].sum()) * 128
+
+
+def math_level_reference():
+    """Level 3 slot by slot in numpy float32, as the kernel walks: for each
+    tile its windows' walked slots (the live 128-slot blocks) in order, at
+    each pixel the kernels' f32 alpha test, and at a passing step the
+    running log T: the step that would take it below log(1e-4) stops the
+    pixel, any other adds w * (r + g + b + invd) + w with w = alpha * T.
+    Returns ([T, 256] float64 value + bg[0], the pixels that stopped)."""
+    _, attrs, vcounts, wt, last_v, tiles_x = binning()
+    out = np.zeros((last_v.shape[0], 256), np.float64)
+    stopped = np.zeros((last_v.shape[0], 256), bool)
+    pix = np.arange(256)
+    log_eps = np.float32(np.log(1e-4))
+    for t, vl in enumerate(last_v):
+        px = np.float32(t % tiles_x * 16) + (pix % 16).astype(np.float32)
+        py = np.float32(t // tiles_x * 16) + (pix // 16).astype(np.float32)
+        tlog = np.zeros(256, np.float32)
+        acc = np.zeros(256, np.float32)
+        alive = np.ones(256, bool)
+        for v in range(int(vl) - int(wt[vl]), int(vl) + 1):
+            n = -(-min(int(vcounts[v]), kf.KCAP) // 128) * 128
+            for a in attrs[v, :n]:
+                dx = px - a[0]
+                dy = py - a[1]
+                power = (np.float32(-0.5) * (a[2] * dx * dx + a[4] * dy * dy)
+                         - a[3] * dx * dy)
+                alpha = np.minimum(np.float32(0.99), a[8] * np.exp(
+                    np.minimum(power, np.float32(0))))
+                ok = alive & (power <= 0) & (alpha >= np.float32(1 / 255))
+                lom = np.log1p(-alpha).astype(np.float32)
+                stop = ok & (tlog + lom < log_eps)
+                take = ok & ~stop
+                w = alpha * np.exp(tlog)
+                acc = np.where(take, acc + w * (a[5] + a[6] + a[7] + a[9])
+                               + w, acc).astype(np.float32)
+                tlog = np.where(take, tlog + lom, tlog).astype(np.float32)
+                alive &= ~stop
+        out[t] = acc
+        stopped[t] = ~alive
+    return out + BG[0, 0], stopped
+
+
+@pytest.mark.parametrize("pair_major", [True, False])
+def test_math_level_plain_matches_reference(pair_major):
+    """The math level's plain version (both layouts, and the CPU wrapper)
+    against the f32 slot-by-slot walk within ``stub_error``'s level-3 bar,
+    with pixels that stop at log(1e-4) among them; and its value is K3's
+    R + G + B + invdepth + alpha (the plain K3 over the walked slots, no
+    background)."""
+    want, stopped = math_level_reference()
+    assert stopped.any() and not stopped.all()
+    got, terms = port_plain(kf.MATH_LEVEL, pair_major)
+    assert (terms > 0).any() and np.isfinite(got).all()
+    kf.stub_error(torch.tensor(want[:, None, :].repeat(8, 1),
+                               dtype=torch.float32),
+                  torch.tensor(got), torch.tensor(terms), kf.MATH_LEVEL)
+    args = layout_tensors(pair_major)
+    np.testing.assert_array_equal(
+        kf.blend_exact_stub(*args, kf.MATH_LEVEL, pair_major).numpy(), got)
+    a, vc, w, lv, _, tiles_x = layout_tensors(True)
+    walked = (kf.window_blocks(vc, kf.KCAP, kf.MATH_LEVEL) * 128).int()
+    k3 = cb.blend_exact_plain(a, walked, w, lv, torch.zeros((1, 3)),
+                              tiles_x)[:, :5].sum(1) + float(BG[0, 0])
+    kf.stub_error(k3[:, None, :].expand(-1, 8, -1), torch.tensor(got),
+                  torch.tensor(terms), kf.MATH_LEVEL)
+
+
+@pytest.mark.parametrize("group", [1, 2, 3])
+@pytest.mark.parametrize("probe", ["D1", "D2"])
+def test_math_level_split_plain_matches_closed_form(group, probe):
+    """The split's plain twin at the math level (K3's split: drops, entry
+    at the earlier groups' sum, the combine stopping after a terminated
+    group) equals the closed form within ``stub_error``'s bar."""
+    pm = probe == "D2"
+    args = layout_tensors(pm) + (kf.MATH_LEVEL, pm)
+    table = cb.exact_split_plan(*args[1:4], group)[0]
+    assert (table[:, 3] >= 0).any()
+    want, terms = kf.blend_exact_stub_plain(*args)
+    got = kf.blend_exact_stub_split_plain(*args, group=group)
+    assert got.shape == want.shape
+    assert kf.stub_error(got, want, terms, kf.MATH_LEVEL) < 1e-3
+
+
+def test_math_level_bound_counts_passing_steps(monkeypatch):
+    """The math level's bound charges the power on every step a pixel
+    reaches before its termination (fewer than the walked slot-pixels
+    here) and the blend on the steps it blends: more blend steps, or a
+    slower special-function rate, never lower it; its error bar lets
+    MATH_FLIP_SHARE of the pixels miss MATH_RTOL and no more."""
+    a, vc, w, lv, _, tiles_x = layout_tensors(True)
+    power, blend = kf.math_walk(a, vc, w, lv, tiles_x, True)[2:]
+    walked = kf.stub_bound(vc, w, lv, kf.KCAP, 2, 0)[2]
+    assert 0 < blend < power < walked * 256
+    assert kf.math_walk(layout_tensors(False)[0], vc, w, lv, tiles_x,
+                        False)[2:] == (power, blend)
+    monkeypatch.setattr(kf, "sfu_rate_of_card", lambda: 1e12)
+    base = kf.stub_bound(vc, w, lv, kf.KCAP, kf.MATH_LEVEL, 2,
+                         (power, blend))
+    assert base[2] == kf.stub_bound(vc, w, lv, kf.KCAP, 2, 2)[2]
+    assert kf.stub_bound(vc, w, lv, kf.KCAP, kf.MATH_LEVEL, 2,
+                         (power, blend * 4))[0] >= base[0]
+    monkeypatch.setattr(kf, "sfu_rate_of_card", lambda: 1e6)
+    slow = kf.stub_bound(vc, w, lv, kf.KCAP, kf.MATH_LEVEL, 2,
+                         (power, blend))
+    assert slow[0] > base[0] and slow[1] == "operations"
+    _, terms = port_plain(kf.MATH_LEVEL, True)
+    t = torch.tensor(terms)
+    want = torch.zeros((t.shape[0], 8, 256))
+    n_allowed = int(kf.MATH_FLIP_SHARE * t.numel())
+    off = torch.zeros_like(t)
+    off.view(-1)[:n_allowed] = 1.0 + 3 * kf.MATH_RTOL * t.view(-1)[:n_allowed]
+    kf.stub_error(want + off[:, None, :], want, t, kf.MATH_LEVEL)
+    off.view(-1)[:n_allowed + 1] = 1.0 + 3 * kf.MATH_RTOL * t.view(-1)[
+        :n_allowed + 1]
+    with pytest.raises(AssertionError):
+        kf.stub_error(want + off[:, None, :], want, t, kf.MATH_LEVEL)
+
+
+def test_split_of_reports_the_math_share():
+    """``split_of`` gives the math share as D2 L3 - D2 L0 (and over K3),
+    and lists it out of range when it falls below 0 or above K3."""
+    recs = [{"probe": p, "level": lv, "tiles_per_block": tpb, "group": g,
+             "ms": 0.1 + 0.01 * i}
+            for i, (p, lv, _, tpb, g) in enumerate(kf.variants())]
+
+    def set_ms(probe, level, ms):
+        next(r for r in recs if r["probe"] == probe and r["level"] == level
+             and r["group"] == cb.EXACT_GROUP)["ms"] = ms
+
+    set_ms("D2", 0, 0.2)
+    set_ms("D2", kf.MATH_LEVEL, 0.5)
+    sp = kf.split_of(1.0, 1.2, recs)
+    assert sp["math_ms_d2_pair_major"] == pytest.approx(0.3)
+    assert sp["math_share_of_k3_d2_pair_major"] == pytest.approx(0.3)
+    assert "math_ms_d2_pair_major" not in sp["out_of_range"]
+    set_ms("D2", kf.MATH_LEVEL, 1.5)
+    assert "math_ms_d2_pair_major" in kf.split_of(1.0, 1.2,
+                                                   recs)["out_of_range"]
+    set_ms("D2", kf.MATH_LEVEL, 0.1)
+    assert "math_ms_d2_pair_major" in kf.split_of(1.0, 1.2,
+                                                   recs)["out_of_range"]
