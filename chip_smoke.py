@@ -7,8 +7,9 @@ Drives the port's forward LOD render path, its training path, its
 street-scale tools path, its hierarchy back end (post-optimization,
 merge, evaluation), its command line (the five-stage ``full-train``,
 ``render-hierarchy``, the live viewer) and its multi-rank layer
-(``parallel/``), its web viewer and its preprocessing on the card and
-holds every hand-written kernel against its plain PyTorch version:
+(``parallel/``), its web viewer, its preprocessing and its root drivers
+(``tools/``) on the card and holds every hand-written kernel against its
+plain PyTorch version:
 
 1. build   — compile ``street_sparse_3dgs_tpu_torch/csrc/*.cu`` (one nvcc per
              source, in parallel) into the ignored ``build/kernels/``;
@@ -146,9 +147,35 @@ holds every hand-written kernel against its plain PyTorch version:
              ``mask_images.process_images`` over 64 faces with precomputed
              detections, and the CTM export of a 2M-triangle mesh (native
              against plain bytes); each step timed;
-18. kernels_street — K1-K5 timed at the shapes of phases 4, 8, 9, and K3,
+18. bench — ``tools/bench`` (bench.py's 512x512, 32k rows, padded K = 384,
+             ``max_dup`` 32: K5, K1, K2): JAX's four keys first, finite
+             grads, the overflow counters (it truncates);
+19. bench_street — ``tools/bench_street`` on phase 4's scene at 1920x1088,
+             4 cameras round-robin: the tool's padded default (``max_dup``
+             16, K = 384: K5, K1, K2) and the production exact config
+             (K5, K3, K4; no tile overflow in a counts step) with its
+             profile;
+20. microbench — ``tools/microbench`` at its full sizes (sorts, the
+             backward's reductions, layouts, gathers, the binning's
+             primitives): every candidate held against its reference
+             before it is timed; no kernel may launch;
+21. parity — ``tools/parity`` (oracle, tiled, kernels padded and exact at
+             128x96: K1-K5): JAX's bar;
+22. convergence — ``tools/convergence`` with the three methods side by
+             side, CONV_ITERS of 1,500 iterations each: finite PSNR, the
+             gaps to tiled recorded (not gated);
+23. pipeline_quality — ``tools/pipeline_quality`` (pallas padded: K5, K1,
+             K2) over its synthetic project at 1/TOOL_DEPTH_CUT depth:
+             every artifact, finite metrics, tau 15 <= tau 0 + 0.1 dB, a
+             rerun that skips every stage;
+24. fork_features — ``tools/fork_features`` both arms (pallas exact: K5,
+             K3, K4) at the same cut, ``results.json`` per arm, the
+             report, a rerun that skips;
+25. kernels_street — K1-K5 timed at the shapes of phases 4, 8, 9, and K3,
              K4 at those of phases 11, 12 and 14, K1 at phase 9's and 16's,
-             K2 at phase 10's, K5 at phase 16's:
+             K2 at phase 10's, K5 at phase 16's, and each kernel at the
+             shapes of its first call in each of phases 18-24 (held
+             against the plain version there too):
              ``ms`` is device time (``profiling.device_ms``), ``wall_ms``
              the events around back-to-back calls, host cost included; K2
              beside its launch floor (the same call with every count 0); K3
@@ -158,10 +185,11 @@ holds every hand-written kernel against its plain PyTorch version:
              warp-slots where a pixel passes the alpha test, from which
              the bound is counted; K3 also deepest first, and against the
              split's plain twin;
-19. the kernels line (launches counted on phases 4, 5, 7, 8, 9, 10, 11,
-             12, 13, 14, 15 and 16 only, error against the plain version,
-             times, bound; K1-K4 with their ``at_parallel`` calls, K1 and K5
-             with their ``at_viewer_app`` calls) and the device line.
+26. the kernels line (launches counted on phases 4, 5, 7, 8, 9, 10, 11,
+             12, 13, 14, 15, 16 and 18-24 only, error against the plain
+             version, times, bound; K1-K4 with their ``at_parallel`` calls,
+             K1 and K5 with their ``at_viewer_app`` calls, each kernel with
+             its ``at_<tool phase>`` calls) and the device line.
 
 Every phase prints one JSON line.  Any failure raises and exits nonzero.
 Without a CUDA card it exits 1 before printing any result.
@@ -209,7 +237,7 @@ N_ROWS, N_VIEWS, WIDTH, HEIGHT = 1_000_000, 4, 1920, 1088
 BENCH_N, BENCH_RES = 32768, 512
 SMALL_N, SMALL_W, SMALL_H = 2048, 256, 192
 STREET_STEPS, BENCH_STEPS, WARMUP_STEPS, LOOP_ITERS = 12, 20, 2, 300
-AUTO_SLICE, RESUME_STEPS = 180, 10       # train_street_auto
+AUTO_SLICE, RESUME_STEPS = 120, 10       # train_street_auto
 POST_STEPS, POST_POINTS, N_ANCHORS = 40, 100_000, 1000   # post_opt
 # tests/test_hierarchy.py::test_compact_cut_render_matches_mask's bars.
 COMPACT_GRAD_BAR, COMPACT_GRAD_RTOL = 5e-4, 2e-3
@@ -219,7 +247,7 @@ K5_EDGE_KS = (128, 384, 1024, 100)
 # full_train: steps of the coarse, chunk and post stages (densify rounds at
 # FT_DENSIFY), of the viewer's train-single run, the frames its client asks
 # for, and the least tau 0 PSNR of the partial run.
-FT_COARSE, FT_CHUNK, FT_DENSIFY, FT_POST = 60, 90, (30, 60), 20
+FT_COARSE, FT_CHUNK, FT_DENSIFY, FT_POST = 30, 45, (15, 30), 20
 FT_VIEWER_STEPS, FT_FRAMES, FT_PSNR_MIN = 20, 3, 5.0
 # The project's GT has no sky (the renders' background is black), so no
 # skybox dome (full-train's default is 100,000 rows, far wider on screen
@@ -3656,6 +3684,310 @@ def preprocess_phase(dev, card: str) -> dict:
     return out
 
 
+# ---- 18-24. the root drivers: tools/ on the card -----------------------------
+# bench, bench_street, microbench and parity run at their full sizes;
+# convergence, pipeline_quality and fork_features at a cut depth (their
+# full-depth runs are the tools' own, PERF.md section 4): convergence
+# CONV_ITERS of 1,500 iterations a method, the pipelines a TOOL_DEPTH_CUT-th
+# of their 200 coarse, 800 chunk and 300 post steps.  Each tool's printed
+# lines go to build/smoke/tools/<phase>.log.
+CONV_ITERS = 200
+TOOL_DEPTH_CUT = 8
+STREET_EXACT_FLAGS = ["--two-level", "--max-dup", "2", "--tile-capacity",
+                      "128", "--exact-extra", "9216", "--dup-overscan", "32",
+                      "--grad-reduce", "counts", "--grad-sort", "bf16"]
+TOOL_KERNELS = ("slab_gather", "blend_padded", "blend_padded_bwd",
+                "blend_exact", "blend_exact_bwd")
+JAX_BENCH_KEYS = ["metric", "value", "unit", "vs_baseline"]
+JAX_STREET_KEYS = ["metric", "value", "unit", "vs_baseline", "step_ms",
+                   "config", "pairs", "visible"]
+
+
+def tool_run(phase: str, fn, expect: tuple) -> tuple:
+    """Drive ``fn()`` with the launch counts set to 0 just before and read
+    just after, the first call of each kernel kept (``Recorder``,
+    first_only) and the tool's stdout sent to its log.  Fails if a kernel
+    of ``expect`` was never launched (with ``expect`` empty, if any kernel
+    was; ``None`` checks nothing).  Returns (result, launches, {kernel: (args, out)}, the
+    tool's printed text)."""
+    import io
+    from street_sparse_3dgs_tpu_torch import native
+    from street_sparse_3dgs_tpu_torch.ops import binning
+    from street_sparse_3dgs_tpu_torch.ops import cuda_blend as cb
+
+    logs = ROOT / "build" / "smoke" / "tools"
+    logs.mkdir(parents=True, exist_ok=True)
+    buf = io.StringIO()
+    with contextlib.ExitStack() as stack:
+        recs = {key: stack.enter_context(Recorder(
+            binning if key == "slab_gather" else cb, key, first_only=True))
+            for key in TOOL_KERNELS}
+        stack.enter_context(contextlib.redirect_stdout(buf))
+        native.reset_launches()
+        try:
+            result = fn()
+        finally:
+            launches = dict(native.LAUNCHES)
+            (logs / f"{phase}.log").write_text(buf.getvalue())
+    for key in expect or ():
+        if launches[key] == 0:
+            raise AssertionError(f"{phase} never launched {key}")
+    if expect == () and any(launches.values()):
+        raise AssertionError(f"{phase} launched a kernel: {launches}")
+    calls = {key: r.calls[0] for key, r in recs.items() if r.calls}
+    return result, launches, calls, buf.getvalue()
+
+
+def tool_held(key: str, args, out, sfu_rate: float, phase: str) -> dict:
+    """A tool phase's recorded blend call held against the plain version
+    (the forward bar with the flip share, the grad bar), timed (device and
+    wall ms, the plain version's) and bounded."""
+    from street_sparse_3dgs_tpu_torch.ops import cuda_blend as cb
+    from street_sparse_3dgs_tpu_torch.profiling import device_ms, event_ms
+
+    kern, plain = getattr(cb, key), getattr(cb, key + "_plain")
+    exact = key.startswith("blend_exact")
+    want = plain(*args)
+    if key.endswith("_bwd"):
+        cmp = compare_grads(f"{key} at {phase}", out, want, 2 if exact else 1)
+        b_ms, b_by, live, walk = bwd_bound(args, exact, sfu_rate)
+    else:
+        cmp = compare_blend(out, want)
+        check_blend(f"{key} at {phase}", cmp, strict=False)
+        b_ms, b_by, live, walk = fwd_bound(args, out, exact, sfu_rate)
+    return {"ms": device_ms(lambda: kern(*args), 20),
+            "wall_ms": event_ms(lambda: kern(*args), 20),
+            "plain_ms": event_ms(lambda: plain(*args), 2),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "max_abs_err": cmp["max_abs_err"],
+            **({"max_scaled_err": cmp["max_scaled_err"]} if "max_scaled_err"
+               in cmp else {"flips": cmp["flips"]}),
+            "tiles": (args[3] if exact else args[0]).shape[0],
+            "live_slots": live, **walk}
+
+
+def finite(*xs) -> bool:
+    return all(isinstance(x, (int, float)) and math.isfinite(x) for x in xs)
+
+
+def tool_phases(dev, scene) -> dict:
+    """Phases 18-24: each tool's ``main`` in this process (``--device``
+    DEVICE), its record checked and emitted.  Returns {phase: {launches,
+    calls}} for the kernels line."""
+    from street_sparse_3dgs_tpu_torch.pipeline import full_train as ft
+    from street_sparse_3dgs_tpu_torch.tools import (bench, bench_street,
+                                                    convergence,
+                                                    fork_features,
+                                                    microbench, parity,
+                                                    pipeline_quality)
+    out = {}
+
+    def done(phase: str, rec: dict, launches: dict, calls: dict, t0):
+        torch.cuda.synchronize()
+        rec = {"phase": phase, "seconds": time.perf_counter() - t0, **rec,
+               "launches": launches}
+        emit(rec)
+        out[phase] = {"launches": launches, "calls": calls}
+
+    # 18. bench: bench.py's config, K5, K1, K2.
+    t0 = time.perf_counter()
+    res, launches, calls, _ = tool_run(
+        "bench", lambda: bench.main(["--device", DEVICE]),
+        ("slab_gather", "blend_padded", "blend_padded_bwd"))
+    line = {k: v for k, v in res.items() if k != "grads"}
+    timed = [line["value"], line["step_ms"]] + (
+        [line["device_ms"], line["device_busy_ms"]] if dev.type == "cuda"
+        else [])
+    if list(line)[:4] != JAX_BENCH_KEYS or not line["grads_finite"] or \
+            not finite(*timed):
+        raise AssertionError(f"bench: bad record {line}")
+    if line["tile_overflow"] <= 0:
+        raise AssertionError("bench: the bench config's overflow was not "
+                             f"counted: {line}")
+    done("bench", {"line": line}, launches, calls, t0)
+    del res
+
+    # 19. bench_street on phase render's scene at 1920x1088, 4 cameras: the
+    # tool's padded default and the production exact config (profiled).
+    t0 = time.perf_counter()
+    runs, all_launches, all_calls = {}, {}, {}
+    base = ["--n", str(N_ROWS), "--width", str(WIDTH), "--height",
+            str(HEIGHT), "--cameras", str(N_VIEWS), "--device", DEVICE]
+    for name, flags, expect in (
+            ("padded", [], ("slab_gather", "blend_padded",
+                            "blend_padded_bwd")),
+            ("exact", STREET_EXACT_FLAGS + ["--profile"],
+             ("slab_gather", "blend_exact", "blend_exact_bwd"))):
+        res, launches, calls, _ = tool_run(
+            f"bench_street_{name}",
+            lambda: bench_street.main(base + flags, scene=scene), expect)
+        line = {k: v for k, v in res.items() if k not in ("grads", "stats",
+                                                          "profile")}
+        if list(line)[:len(JAX_STREET_KEYS)] != JAX_STREET_KEYS or \
+                not line["grads_finite"] or \
+                not finite(line["value"], line["step_ms"]):
+            raise AssertionError(f"bench_street {name}: bad record {line}")
+        if name == "exact" and line["step_tile_overflow_max"]:
+            raise AssertionError("bench_street exact: tile_overflow in a "
+                                 f"counts step: {line}")
+        runs[name] = {"line": line, "stats": res["stats"]}
+        if name == "exact":
+            prof = res["profile"]
+            runs[name]["profile"] = {"top": prof["top"][:12]}
+            if "device_busy_ms" in prof:
+                runs[name]["profile"].update(
+                    device_busy_ms_per_step=prof["device_busy_ms"]
+                    / bench_street.parser().get_default("iters"),
+                    device_idle_share=prof["device_idle_share"])
+        for k, v in launches.items():
+            all_launches[k] = all_launches.get(k, 0) + v
+        all_calls.update({f"{k}@{name}": c for k, c in calls.items()})
+        del res
+    done("bench_street", {"runs": runs}, all_launches, all_calls, t0)
+
+    # 20. microbench: every candidate held against its reference first.
+    t0 = time.perf_counter()
+    res, launches, calls, _ = tool_run("microbench",
+                                       lambda: microbench.main(["--device", DEVICE]), ())
+    done("microbench", {"candidates": len(res["ms"]), "ms": res["ms"],
+                        "max_check_err": max(res["checks"].values())},
+         launches, calls, t0)
+
+    # 21. parity: oracle, tiled, kernels padded and exact at 128x96.
+    t0 = time.perf_counter()
+    res, launches, calls, _ = tool_run(
+        "parity", lambda: parity.main(["--device", DEVICE]), TOOL_KERNELS)
+    if not res["passed"]:
+        raise AssertionError(f"parity: {res['failures']}")
+    done("parity", {"diffs": res["diffs"],
+                    "bar": f"image < {parity.IMAGE_BAR}, grads within "
+                           f"{parity.GRAD_FACTOR}x tiled-oracle"},
+         launches, calls, t0)
+    del res
+
+    # 22. convergence: the three methods side by side on identical inputs.
+    t0 = time.perf_counter()
+    recs, launches, calls, _ = tool_run(
+        "convergence", lambda: convergence.main(
+            ["--methods", ",".join(convergence.METHODS), str(CONV_ITERS),
+             "--device", DEVICE]), TOOL_KERNELS)
+    by = {r["method"]: r for r in recs}
+    if not all(finite(r["psnr"], *r["per_view"]) for r in recs):
+        raise AssertionError(f"convergence: PSNR not finite {by}")
+    done("convergence", {
+        "iters": CONV_ITERS, "cut_from": 1500,
+        "methods": {m: {k: r[k] for k in ("psnr", "per_view", "n_active",
+                                          "wall_s", "skipped_updates",
+                                          "tile_overflow", "dup_overflow")}
+                    for m, r in by.items()},
+        "gap_db_vs_tiled": {m: by[m]["psnr"] - by["tiled"]["psnr"]
+                            for m in ("pallas", "pallas-exact")}},
+        launches, calls, t0)
+
+    # 23-24. the pipelines at a cut depth, each run twice (the rerun skips).
+    cut = {k: v // TOOL_DEPTH_CUT for k, v in pipeline_quality.DEPTHS.items()}
+
+    def pipeline_phase(phase, mod, argv_of, expect, check):
+        """Run the tool over ``argv_of`` at the cut depth, then again: the
+        rerun must skip every stage of every run and keep each merged
+        tree."""
+        t0 = time.perf_counter()
+        real = mod.DEPTHS
+        mod.DEPTHS = cut
+        try:
+            res, launches, calls, _ = tool_run(phase, lambda: [
+                mod.main(argv) for argv in argv_of], expect)
+            stamps = merged_stamps()
+            again, _, _, text = tool_run(f"{phase}_rerun", lambda: [
+                mod.main(argv) for argv in argv_of], None)
+        finally:
+            mod.DEPTHS = real
+        runs = sum("--report" not in argv for argv in argv_of)
+        if not (text.count("Skipping coarse") == runs
+                and text.count("Skipping chunk 0_0") == runs
+                and text.count("Skipping chunk 1_0") == runs
+                and "== Stage 2" not in text
+                and merged_stamps() == stamps):
+            raise AssertionError(f"{phase}: the rerun did not skip: "
+                                 f"{text[-2000:]!r}")
+        rec = check(res, again)
+        rec.update(depths=cut, cut_from=dict(real), rerun_skipped=True)
+        done(phase, rec, launches, calls, t0)
+
+    pq_dir = ROOT / "build" / "smoke" / "pipe_quality"
+    ff_dir = ROOT / "build" / "smoke" / "fork_features"
+    shutil.rmtree(pq_dir, ignore_errors=True)
+    shutil.rmtree(ff_dir, ignore_errors=True)
+
+    def merged_stamps():
+        return sorted((str(p), p.stat().st_mtime_ns) for d in (pq_dir, ff_dir)
+                      if d.exists() for p in d.rglob("merged.hier.npz"))
+
+    def check_pq(res, again):
+        (r,), (r2,) = res, again
+        paths = ft.ProjectPaths(pq_dir)
+        need = [paths.output_dir / "merged.hier.npz",
+                paths.output_dir / "training_pipeline_timing.txt"] + [
+            paths.trained_chunks_dir / c / f"hierarchy.{h}.npz"
+            for c in ("0_0", "1_0") for h in ("hier", "hier_opt")]
+        missing = [str(p) for p in need if not p.exists()]
+        sweep = {f"{t:g}": {k: v for k, v in r["merged_test"][t].items()
+                            if isinstance(v, float)} for t in TAUS}
+        vals = [v for d in sweep.values() for v in d.values()] + [
+            r["merged_train"]["psnr"]] + [
+            row[s]["psnr"] for row in r["per_chunk"].values()
+            for s in ("test", "train")]
+        if missing or not finite(*vals) or len(r["per_chunk"]) != 4 or \
+                sweep["15"]["psnr"] > sweep["0"]["psnr"] + 0.1 or \
+                r2["merged_test"][0.0]["psnr"] != r["merged_test"][0.0]["psnr"]:
+            raise AssertionError(f"pipeline_quality: missing {missing} or "
+                                 f"bad metrics {sweep} {r['per_chunk']}")
+        pipe = pipeline_quality.pipe_config("pallas", False, False, "f32")
+        return {"config": {k: getattr(pipe, k) for k in (
+                    "raster_method", "tile_capacity", "max_dup",
+                    "exact_extra")}, "train_s": r["train_s"],
+                "per_chunk": {k: {s: v[s]["psnr"] for s in ("test", "train")}
+                              for k, v in r["per_chunk"].items()},
+                "merged_test": sweep,
+                "merged_train_psnr": r["merged_train"]["psnr"],
+                "n_nodes": r["n_nodes"]}
+
+    pipeline_phase("pipeline_quality", pipeline_quality,
+                   [["--dir", str(pq_dir), "--device", DEVICE]],
+                   ("slab_gather", "blend_padded", "blend_padded_bwd"),
+                   check_pq)
+
+    def check_ff(res, again):
+        arms = {}
+        for arm, r in zip(("on", "off"), res):
+            saved = json.loads((ff_dir / arm / "results.json").read_text())
+            if saved != json.loads(json.dumps(r)) or sorted(saved) != [
+                    "n_nodes", "test", "train"] or not finite(
+                    *saved["test"].values(), *saved["train"].values()):
+                raise AssertionError(f"fork_features {arm}: {saved}")
+            arms[arm] = saved
+        if [json.loads(json.dumps(r)) for r in again[:2]] != [
+                arms["on"], arms["off"]]:
+            raise AssertionError("fork_features: the rerun's results differ")
+        pipe = fork_features.pipe_config(dev)
+        return {"config": {k: getattr(pipe, k) for k in (
+                    "raster_method", "tile_capacity", "max_dup",
+                    "exact_extra", "grad_sort")}, "arms": arms,
+                "on_minus_off": {k: arms["on"]["test"][k]
+                                 - arms["off"]["test"][k]
+                                 for k in arms["on"]["test"]}}
+
+    pipeline_phase("fork_features", fork_features,
+                   [["--dir", str(ff_dir), "--arm", arm, "--device", DEVICE]
+                    for arm in ("on", "off")]
+                   + [["--dir", str(ff_dir), "--report"]],
+                   # (the tiled plain path on the CPU, as the JAX tool's)
+                   ("slab_gather", "blend_exact", "blend_exact_bwd")
+                   if fork_features.pipe_config(dev).raster_method
+                   == "pallas" else None, check_ff)
+    return out
+
+
 def _meta(n: int):
     from street_sparse_3dgs_tpu_torch.models.gaussians import GaussianMeta
     return GaussianMeta(sh_degree=3, capacity=n)
@@ -4135,6 +4467,9 @@ def main() -> int:
     # ---- 17. preprocessing on a synthetic street project ------------------
     preprocess_phase(dev, card)
 
+    # ---- 18-24. the root drivers: tools/ (main path, counted) -------------
+    tools_rec = tool_phases(dev, scene)
+
     # ---- 18. kernels at the street shapes of view 0 -----------------------
     t0 = time.perf_counter()
     counted = {"render": launches_render, "hierarchy": launches_hier,
@@ -4147,7 +4482,8 @@ def main() -> int:
                "merge_eval": merge_rec["launches"],
                "full_train": ft_rec["launches"],
                "parallel": par_rec["launches"],
-               "viewer_app": viewer_rec["launches"]}
+               "viewer_app": viewer_rec["launches"],
+               **{p: r["launches"] for p, r in tools_rec.items()}}
 
     def launches_of(key):
         by = {p: c[key] for p, c in counted.items() if c[key]}
@@ -4459,6 +4795,20 @@ def main() -> int:
         "tolerance": "exactly equal", **k5, "shapes": "street view 0",
         "at_post_opt": k5_post, "at_merge_eval": k5_merge,
         "at_full_train": k5_ft, "at_viewer_app": k5_viewer})
+    # K1-K5 at the tools' shapes (phases 18-24): each phase's first call of
+    # each kernel held against the plain version, timed and bounded.
+    for phase, rec in tools_rec.items():
+        for name, (args, out) in rec["calls"].items():
+            key, _, run = name.partition("@")
+            if key == "slab_gather":
+                held = k5_timing(args, out)
+                if held["max_abs_err"]:
+                    raise AssertionError(f"K5 at {phase}: table differs")
+            else:
+                held = tool_held(key, args, out, sfu_rate, phase)
+            entry = next(k for k in kernels if k["name"].endswith(" " + key))
+            entry[f"at_{phase}" + (f"_{run}" if run else "")] = held
+    del tools_rec
     # D1-D3 at the street shapes of the kernel_floor phase: the headline
     # variant (level 2; D3 one tile a block) and every variant beside it.
     for probe, replaces in (("D1", "tools/kernel_floor_tpu.py:40"),
