@@ -27,6 +27,7 @@ from ..core.quaternion import align_sign
 from ..models.gaussians import GaussianParams, sh_coeffs
 from ..ops.cuda_blend import slot_grads_to_rows
 from ..ops.rasterize import RasterConfig, rasterize
+from ..profiling import count, span, sync_point
 from .structure import Cut
 
 
@@ -208,40 +209,45 @@ def compact_cut_params(h_params: GaussianParams, cut: Cut, n_nodes: int,
     """Gather only the selected nodes (+ skybox tail), blend them with their
     parents and return dense activated arrays.  The row count is padded to
     a power of two (at least 16), like the JAX function, so repeated calls
-    see a bounded set of shapes; padding rows are inactive."""
-    dev = h_params.xyz.device
-    sel = torch.nonzero(cut.selected).reshape(-1)
-    total = h_params.xyz.shape[0]
-    sky = torch.arange(n_nodes, total, device=dev)
-    idx = torch.cat([sel, sky])
-    par = torch.cat([cut.parent[sel].to(torch.int64), sky])
-    w = torch.cat([cut.weights[sel],
-                   torch.ones(sky.shape[0], dtype=torch.float32, device=dev)])
+    see a bounded set of shapes; padding rows are inactive.  The one host
+    sync of a frame is ``torch.nonzero``'s read of the selected count."""
+    with span("hierarchy.compact"):
+        dev = h_params.xyz.device
+        with sync_point("compact_nonzero"):
+            sel = torch.nonzero(cut.selected).reshape(-1)
+        total = h_params.xyz.shape[0]
+        sky = torch.arange(n_nodes, total, device=dev)
+        idx = torch.cat([sel, sky])
+        par = torch.cat([cut.parent[sel].to(torch.int64), sky])
+        w = torch.cat([cut.weights[sel],
+                       torch.ones(sky.shape[0], dtype=torch.float32,
+                                  device=dev)])
 
-    n = idx.shape[0]
-    n_pad = (1 << max(4, math.ceil(math.log2(max(n, 1))))
-             if pad_to_pow2 else n)
-    pad = n_pad - n
-    zpad = torch.zeros(pad, dtype=torch.int64, device=dev)
-    gi = torch.cat([idx, zpad])
-    gp = torch.cat([par, zpad])
-    wj = torch.cat([w, torch.ones(pad, dtype=torch.float32,
-                                  device=dev)])[:, None]
-    active = torch.arange(n_pad, device=dev) < n
+        n = idx.shape[0]
+        count("cut.rows", n)
+        n_pad = (1 << max(4, math.ceil(math.log2(max(n, 1))))
+                 if pad_to_pow2 else n)
+        pad = n_pad - n
+        zpad = torch.zeros(pad, dtype=torch.int64, device=dev)
+        gi = torch.cat([idx, zpad])
+        gp = torch.cat([par, zpad])
+        wj = torch.cat([w, torch.ones(pad, dtype=torch.float32,
+                                      device=dev)])[:, None]
+        active = torch.arange(n_pad, device=dev) < n
 
-    xyz = h_params.xyz
-    scales = torch.exp(h_params.log_scales)
-    opac = torch.abs(h_params.opacity_raw[:, 0])
-    sh = sh_coeffs(h_params)
-    quats = h_params.quats
+        xyz = h_params.xyz
+        scales = torch.exp(h_params.log_scales)
+        opac = torch.abs(h_params.opacity_raw[:, 0])
+        sh = sh_coeffs(h_params)
+        quats = h_params.quats
 
-    xyz_b = wj * xyz[gi] + (1 - wj) * xyz[gp]
-    scales_b = wj * scales[gi] + (1 - wj) * scales[gp]
-    opac_b = wj[:, 0] * opac[gi] + (1 - wj[:, 0]) * opac[gp]
-    sh_b = wj[:, :, None] * sh[gi] + (1 - wj[:, :, None]) * sh[gp]
-    parents_q = align_sign(quats[gp], quats[gi])
-    quats_b = wj * quats[gi] + (1 - wj) * parents_q
-    return xyz_b, scales_b, quats_b, opac_b, sh_b, active
+        xyz_b = wj * xyz[gi] + (1 - wj) * xyz[gp]
+        scales_b = wj * scales[gi] + (1 - wj) * scales[gp]
+        opac_b = wj[:, 0] * opac[gi] + (1 - wj[:, 0]) * opac[gp]
+        sh_b = wj[:, :, None] * sh[gi] + (1 - wj[:, :, None]) * sh[gp]
+        parents_q = align_sign(quats[gp], quats[gi])
+        quats_b = wj * quats[gi] + (1 - wj) * parents_q
+        return xyz_b, scales_b, quats_b, opac_b, sh_b, active
 
 
 def render_cut_compact(h_params: GaussianParams, cut: Cut, n_nodes: int,

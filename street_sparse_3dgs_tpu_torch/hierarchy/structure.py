@@ -14,6 +14,7 @@ from typing import NamedTuple
 import torch
 
 from ..models.gaussians import GaussianParams
+from ..profiling import span
 
 
 class Hierarchy(NamedTuple):
@@ -95,25 +96,27 @@ def select_cut(h: Hierarchy, campos: torch.Tensor, limit) -> Cut:
     """Vectorized cut selection and interpolation weights: selected iff
     (m_i <= limit or leaf) and m_parent > limit; weight
     t = clamp((m_p − limit)/(m_p − m_i), 0, 1)."""
-    eps = 1e-6
-    metric, parent_metric, is_leaf = _cut_metric(h, campos)
-    parent = torch.clamp(h.parent, min=0).to(torch.int64)
-    is_root = h.parent < 0
+    with span("hierarchy.cut"):
+        eps = 1e-6
+        metric, parent_metric, is_leaf = _cut_metric(h, campos)
+        parent = torch.clamp(h.parent, min=0).to(torch.int64)
+        is_root = h.parent < 0
 
-    small_enough = (metric <= limit) | is_leaf
-    selected = small_enough & (parent_metric > limit)
+        small_enough = (metric <= limit) | is_leaf
+        selected = small_enough & (parent_metric > limit)
 
-    t = (parent_metric - limit) / torch.clamp(parent_metric - metric, min=eps)
-    t = torch.where(torch.isinf(parent_metric), torch.ones_like(t), t)
-    weights = torch.clamp(t, 0.0, 1.0)
-    weights = torch.where(selected, torch.clamp(weights, min=eps),
-                          torch.ones_like(weights))
+        t = (parent_metric - limit) / torch.clamp(parent_metric - metric,
+                                                  min=eps)
+        t = torch.where(torch.isinf(parent_metric), torch.ones_like(t), t)
+        weights = torch.clamp(t, 0.0, 1.0)
+        weights = torch.where(selected, torch.clamp(weights, min=eps),
+                              torch.ones_like(weights))
 
-    node_ids = torch.arange(h.n_nodes, device=h.parent.device,
-                            dtype=h.parent.dtype)
-    parent_self = torch.where(is_root, node_ids, h.parent)
-    num_siblings = torch.where(is_root, torch.ones_like(h.child_count),
-                               h.child_count[parent])
-    return Cut(selected=selected, weights=weights,
-               parent=parent_self.to(torch.int32),
-               num_siblings=num_siblings.to(torch.int32))
+        node_ids = torch.arange(h.n_nodes, device=h.parent.device,
+                                dtype=h.parent.dtype)
+        parent_self = torch.where(is_root, node_ids, h.parent)
+        num_siblings = torch.where(is_root, torch.ones_like(h.child_count),
+                                   h.child_count[parent])
+        return Cut(selected=selected, weights=weights,
+                   parent=parent_self.to(torch.int32),
+                   num_siblings=num_siblings.to(torch.int32))

@@ -15,6 +15,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..profiling import span
 from .gaussians import GaussianParams
 
 BETA1 = 0.9
@@ -72,17 +73,19 @@ def step(params: GaussianParams, grads: GaussianParams, state: AdamState,
          lrs: ParamLrs, relevant: torch.Tensor,
          eps: float = EPS) -> tuple[GaussianParams, AdamState]:
     """One masked Adam step over the rows where ``relevant`` [C] is set."""
-    t = state.step + 1
-    bc1, bc2 = _bias_corrections(t)
-    new_p, new_m, new_v = [], [], []
-    for p, g, m, v, lr in zip(params, grads, state.mu, state.nu, lrs):
-        mask = _rows(relevant, p.dim())
-        m_new = torch.where(mask, BETA1 * m + (1.0 - BETA1) * g, m)
-        v_new = torch.where(mask, BETA2 * v + (1.0 - BETA2) * g * g, v)
-        denom = torch.sqrt(v_new / bc2) + eps
-        new_p.append(torch.where(mask, p - lr * (m_new / bc1) / denom, p))
-        new_m.append(m_new)
-        new_v.append(v_new)
+    with span("adam.sparse"):
+        t = state.step + 1
+        bc1, bc2 = _bias_corrections(t)
+        new_p, new_m, new_v = [], [], []
+        for p, g, m, v, lr in zip(params, grads, state.mu, state.nu, lrs):
+            mask = _rows(relevant, p.dim())
+            m_new = torch.where(mask, BETA1 * m + (1.0 - BETA1) * g, m)
+            v_new = torch.where(mask, BETA2 * v + (1.0 - BETA2) * g * g, v)
+            denom = torch.sqrt(v_new / bc2) + eps
+            new_p.append(torch.where(mask, p - lr * (m_new / bc1) / denom,
+                                     p))
+            new_m.append(m_new)
+            new_v.append(v_new)
     return (GaussianParams(*new_p),
             AdamState(mu=GaussianParams(*new_m), nu=GaussianParams(*new_v),
                       step=t))
@@ -103,11 +106,12 @@ def dense_init(param: torch.Tensor) -> DenseAdamState:
 def dense_step(param: torch.Tensor, grad: torch.Tensor,
                state: DenseAdamState, lr, eps: float = EXPOSURE_EPS):
     """Plain Adam over the whole tensor (the exposure table)."""
-    t = state.step + 1
-    bc1, bc2 = _bias_corrections(t)
-    m = BETA1 * state.mu + (1.0 - BETA1) * grad
-    v = BETA2 * state.nu + (1.0 - BETA2) * grad * grad
-    new = param - lr * (m / bc1) / (torch.sqrt(v / bc2) + eps)
+    with span("adam.dense"):
+        t = state.step + 1
+        bc1, bc2 = _bias_corrections(t)
+        m = BETA1 * state.mu + (1.0 - BETA1) * grad
+        v = BETA2 * state.nu + (1.0 - BETA2) * grad * grad
+        new = param - lr * (m / bc1) / (torch.sqrt(v / bc2) + eps)
     return new, DenseAdamState(m, v, t)
 
 

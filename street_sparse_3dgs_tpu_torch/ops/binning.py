@@ -31,6 +31,7 @@ from typing import NamedTuple
 import torch
 
 from .. import native
+from ..profiling import count, span, sync_point
 from .oracle import ALPHA_MIN
 from .preprocess import Projected
 
@@ -233,7 +234,7 @@ def bin_gaussians(proj: Projected, height: int, width: int,
     granted windows stay counted in ``tile_overflow``."""
     if key_mode not in KEY_MODES:
         raise ValueError(f"unknown key_mode {key_mode!r}")
-    with torch.no_grad():
+    with torch.no_grad(), span("binning"):
         return _bin(proj, height, width, max_dup, tile_capacity, dup_tails,
                     vis_capacity, exact_extra, with_seg_pos, exact_shards,
                     dup_overscan)
@@ -253,167 +254,132 @@ def _bin(proj, height, width, max_dup, tile_capacity, dup_tails,
     t_total = tiles_x * tiles_y
     i32 = torch.int32
 
-    # Stable: culled rows (depth +inf) tie and keep their row order.
-    order = torch.sort(proj.depth, stable=True).indices
-    inv_rank_n = torch.empty_like(order)
-    inv_rank_n[order] = torch.arange(n, device=dev)
+    with span("binning.depth_sort"):
+        # Stable: culled rows (depth +inf) tie and keep their row order.
+        order = torch.sort(proj.depth, stable=True).indices
+        inv_rank_n = torch.empty_like(order)
+        inv_rank_n[order] = torch.arange(n, device=dev)
 
-    if vis_capacity is not None and vis_capacity < n:
-        # Visible compaction: keep the nearest V rows (depth-sorted rows put
-        # the visible ones first); ranks become the identity in V-space.
-        v = vis_capacity
-        sel = order[:v]
-        mean2d, conic = proj.mean2d[sel], proj.conic[sel]
-        radius, opacity = proj.radius[sel], proj.opacity[sel]
-        n_valid = torch.sum(proj.valid, dtype=torch.int64)
-        valid = torch.arange(v, device=dev) < n_valid
-        vis_overflow = torch.clamp(n_valid - v, min=0)
-        inv_rank = torch.arange(v, device=dev)
-        rank_out = torch.clamp(inv_rank_n, max=v)
-        order_out = sel
-        m = v
-    else:
-        mean2d, conic = proj.mean2d, proj.conic
-        radius, opacity = proj.radius, proj.opacity
-        valid = proj.valid
-        vis_overflow = torch.zeros((), dtype=torch.int64, device=dev)
-        inv_rank = inv_rank_n
-        rank_out, order_out = inv_rank_n, order
-        m = n
-    inv_rank = inv_rank.to(i32)
-
-    x0, y0, x1, y1 = tile_rect(mean2d, radius, tiles_x, tiles_y)
-    zero = torch.zeros_like(x0)
-    nx = torch.where(valid, x1 - x0, zero)
-    ny = torch.where(valid, y1 - y0, zero)
-    coverage = nx * ny                                       # [N]
+        if vis_capacity is not None and vis_capacity < n:
+            # Visible compaction: keep the nearest V rows (depth-sorted rows
+            # put the visible ones first); ranks become the identity in
+            # V-space.
+            v = vis_capacity
+            sel = order[:v]
+            mean2d, conic = proj.mean2d[sel], proj.conic[sel]
+            radius, opacity = proj.radius[sel], proj.opacity[sel]
+            n_valid = torch.sum(proj.valid, dtype=torch.int64)
+            valid = torch.arange(v, device=dev) < n_valid
+            vis_overflow = torch.clamp(n_valid - v, min=0)
+            inv_rank = torch.arange(v, device=dev)
+            rank_out = torch.clamp(inv_rank_n, max=v)
+            order_out = sel
+            m = v
+        else:
+            mean2d, conic = proj.mean2d, proj.conic
+            radius, opacity = proj.radius, proj.opacity
+            valid = proj.valid
+            vis_overflow = torch.zeros((), dtype=torch.int64, device=dev)
+            inv_rank = inv_rank_n
+            rank_out, order_out = inv_rank_n, order
+            m = n
+        inv_rank = inv_rank.to(i32)
 
     scan = max_dup * (dup_overscan or DUP_OVERSCAN)
     n = m
-    slots = torch.arange(scan, dtype=i32, device=dev)        # [S]
-    nx_safe = torch.clamp(nx, min=1)
-    # slots // nx through the reciprocal, exactly as the JAX module does
-    # (exact at these magnitudes; see its note).
-    inv_nx = 1.0 / nx_safe.to(torch.float32)
-    sy = torch.floor((slots[None, :].to(torch.float32) + 0.5)
-                     * inv_nx[:, None]).to(i32)              # [N, S]
-    sx = slots[None, :] - sy * nx_safe[:, None]
-    tile_x = x0[:, None] + sx
-    tile_y = y0[:, None] + sy
-    tile_id = tile_y * tiles_x + tile_x
-    in_range = slots[None, :] < torch.clamp(coverage, max=scan)[:, None]
-    qmin = _tile_qmin(mean2d, conic, tile_x, tile_y)
-    # opac·exp(−qmin/2) ≥ αmin ⇔ qmin ≤ 2(log opac − log αmin), with the
-    # same (1−1e-3) margin and f32 constant as the JAX module.
-    log_amin = torch.log(torch.tensor(ALPHA_MIN * (1.0 - 1e-3),
-                                      dtype=torch.float32, device=dev))
-    qcap = 2.0 * (torch.where(opacity > 0.0,
-                              torch.log(torch.clamp(opacity, min=1e-30)),
-                              torch.full_like(opacity, -math.inf))
-                  - log_amin)
-    keep = in_range & (qmin <= qcap[:, None])
-    del qmin, sx, sy, tile_x, tile_y, in_range
-    # Per-row compaction: surviving tiles first, ascending (a row's rect
-    # tiles are distinct, so this order is unique).
-    tile_id = torch.sort(torch.where(keep, tile_id,
-                                     torch.full_like(tile_id, 2 ** 31 - 1)),
-                         dim=1).values
-    kept = torch.sum(keep, dim=1, dtype=i32)
-    del keep
-    live = (torch.arange(max_dup, dtype=i32, device=dev)[None, :]
-            < torch.clamp(kept, max=max_dup)[:, None])
-    keys = torch.where(live, tile_id[:, :max_dup],
-                       torch.full_like(live, t_total, dtype=i32)).reshape(-1)
-    ranks = inv_rank[:, None].expand(n, max_dup).reshape(-1)
+    with span("binning.scan"):
+        x0, y0, x1, y1 = tile_rect(mean2d, radius, tiles_x, tiles_y)
+        zero = torch.zeros_like(x0)
+        nx = torch.where(valid, x1 - x0, zero)
+        ny = torch.where(valid, y1 - y0, zero)
+        coverage = nx * ny                                   # [N]
+        covered = torch.clamp(coverage, max=scan)
 
-    key_parts, rank_parts = [keys], [ranks]
-    start = max_dup
-    tail_lost = torch.zeros((), dtype=torch.int64, device=dev)
-    emitted = torch.clamp(kept, max=max_dup)                 # [N] per row
-    for budget, width_t in dup_tails:
-        width_t = min(width_t, scan - start)
-        budget = min(budget, n)
-        if width_t <= 0 or budget <= 0:
-            continue
-        tk, tr, lost, sel_rows, granted = _tail_bucket(
-            kept, tile_id, inv_rank, n, start, budget, width_t, t_total)
-        key_parts.append(tk)
-        rank_parts.append(tr)
-        emitted = emitted.index_add(0, sel_rows, granted.to(i32))
-        tail_lost = tail_lost + lost
-        start += width_t
-    keys = torch.cat(key_parts)
-    ranks = torch.cat(rank_parts)
-    del tile_id, key_parts, rank_parts
-    dup_overflow = (torch.sum(torch.clamp(kept - start, min=0),
-                              dtype=torch.int64)
-                    + tail_lost
-                    + torch.sum(torch.clamp(coverage - scan, min=0),
-                                dtype=torch.int64))
+        slots = torch.arange(scan, dtype=i32, device=dev)    # [S]
+        nx_safe = torch.clamp(nx, min=1)
+        # slots // nx through the reciprocal, exactly as the JAX module does
+        # (exact at these magnitudes; see its note).
+        inv_nx = 1.0 / nx_safe.to(torch.float32)
+        sy = torch.floor((slots[None, :].to(torch.float32) + 0.5)
+                         * inv_nx[:, None]).to(i32)          # [N, S]
+        sx = slots[None, :] - sy * nx_safe[:, None]
+        tile_x = x0[:, None] + sx
+        tile_y = y0[:, None] + sy
+        tile_id = tile_y * tiles_x + tile_x
+        in_range = slots[None, :] < covered[:, None]
+        qmin = _tile_qmin(mean2d, conic, tile_x, tile_y)
+        # opac·exp(−qmin/2) ≥ αmin ⇔ qmin ≤ 2(log opac − log αmin), with the
+        # same (1−1e-3) margin and f32 constant as the JAX module.
+        with sync_point("binning_alpha_min"):     # a pageable host copy
+            log_amin = torch.log(torch.tensor(ALPHA_MIN * (1.0 - 1e-3),
+                                              dtype=torch.float32,
+                                              device=dev))
+        qcap = 2.0 * (torch.where(opacity > 0.0,
+                                  torch.log(torch.clamp(opacity, min=1e-30)),
+                                  torch.full_like(opacity, -math.inf))
+                      - log_amin)
+        keep = in_range & (qmin <= qcap[:, None])
+        del qmin, sx, sy, tile_x, tile_y, in_range
+        kept = torch.sum(keep, dim=1, dtype=i32)
+    with span("binning.row_sort"):
+        # Per-row compaction: surviving tiles first, ascending (a row's rect
+        # tiles are distinct, so this order is unique).
+        tile_id = torch.sort(torch.where(keep, tile_id,
+                                         torch.full_like(tile_id,
+                                                         2 ** 31 - 1)),
+                             dim=1).values
+        del keep
+    with span("binning.tails"):
+        live = (torch.arange(max_dup, dtype=i32, device=dev)[None, :]
+                < torch.clamp(kept, max=max_dup)[:, None])
+        keys = torch.where(live, tile_id[:, :max_dup],
+                           torch.full_like(live, t_total,
+                                           dtype=i32)).reshape(-1)
+        ranks = inv_rank[:, None].expand(n, max_dup).reshape(-1)
 
-    rank_bits = max(1, (n - 1).bit_length())
-    packed = (keys.to(torch.int64) << rank_bits) | ranks.to(torch.int64)
-    del keys, ranks
-    sorted_vals = torch.sort(packed).values
-    del packed
-    probes = torch.arange(t_total + 1, dtype=torch.int64,
-                          device=dev) << rank_bits
-    boundaries = torch.searchsorted(sorted_vals, probes).to(i32)
-    starts = boundaries[:-1]
-    counts = boundaries[1:] - starts
+        key_parts, rank_parts = [keys], [ranks]
+        start = max_dup
+        tail_lost = torch.zeros((), dtype=torch.int64, device=dev)
+        emitted = torch.clamp(kept, max=max_dup)             # [N] per row
+        for budget, width_t in dup_tails:
+            width_t = min(width_t, scan - start)
+            budget = min(budget, n)
+            if width_t <= 0 or budget <= 0:
+                continue
+            tk, tr, lost, sel_rows, granted = _tail_bucket(
+                kept, tile_id, inv_rank, n, start, budget, width_t, t_total)
+            key_parts.append(tk)
+            rank_parts.append(tr)
+            emitted = emitted.index_add(0, sel_rows, granted.to(i32))
+            tail_lost = tail_lost + lost
+            start += width_t
+        keys = torch.cat(key_parts)
+        ranks = torch.cat(rank_parts)
+        del tile_id, key_parts, rank_parts
+        dup_overflow = (torch.sum(torch.clamp(kept - start, min=0),
+                                  dtype=torch.int64)
+                        + tail_lost
+                        + torch.sum(torch.clamp(coverage - scan, min=0),
+                                    dtype=torch.int64))
+
+    with span("binning.key_sort"):
+        rank_bits = max(1, (n - 1).bit_length())
+        packed = (keys.to(torch.int64) << rank_bits) | ranks.to(torch.int64)
+        del keys, ranks
+        sorted_vals = torch.sort(packed).values
+        del packed
+        probes = torch.arange(t_total + 1, dtype=torch.int64,
+                              device=dev) << rank_bits
+        boundaries = torch.searchsorted(sorted_vals, probes).to(i32)
+        starts = boundaries[:-1]
+        counts = boundaries[1:] - starts
 
     if exact_extra > 0:
-        # Virtual-tile windows: every real tile gets one K-wide window; tiles
-        # needing more draw extras from the budget in tile order.  A tile's
-        # windows stay consecutive.  ``exact_shards`` gives each shard of the
-        # (padded) tile range its own budget exact_extra / S.
-        kcap = tile_capacity
-        s_n = exact_shards
-        if exact_extra % s_n:
-            raise ValueError("exact_extra must divide by exact_shards")
-        t_pad_total = -(-t_total // s_n) * s_n
-        pad_t = t_pad_total - t_total
-        pad = torch.zeros((pad_t,), dtype=i32, device=dev)
-        cnt_p = torch.cat([counts, pad])
-        st_p = torch.cat([starts, pad])
-        ln = t_pad_total // s_n
-        e_s = exact_extra // s_n
-        l_v = ln + e_s
-        cnt2 = cnt_p.reshape(s_n, ln)
-        nw_need = torch.clamp(-torch.div(-cnt2, kcap, rounding_mode="floor"),
-                              min=1)
-        extra_need = nw_need - 1
-        ecum = torch.cumsum(extra_need, dim=1) - extra_need
-        nw = 1 + torch.minimum(torch.clamp(e_s - ecum, min=0), extra_need)
-        cum = torch.cumsum(nw, dim=1)                        # [S, L]
-        vv = torch.arange(l_v, dtype=cum.dtype, device=dev)
-        tloc = torch.searchsorted(cum.contiguous(),
-                                  vv[None, :].expand(s_n, l_v).contiguous(),
-                                  right=True)                # [S, L_v]
-        used = tloc < ln
-        tloc_safe = torch.clamp(tloc, max=ln - 1)
-
-        def take(a):
-            return torch.gather(a, 1, tloc_safe)
-
-        zv = torch.zeros_like(tloc)
-        wt2 = torch.where(used, vv[None, :] - (take(cum) - take(nw)), zv)
-        starts_v = torch.where(used, take(st_p.reshape(s_n, ln)) + wt2 * kcap,
-                               zv)
-        vcounts = torch.where(
-            used, torch.clamp(take(cnt2) - wt2 * kcap, 0, kcap), zv)
-        shard_base = (torch.arange(s_n, device=dev) * ln)[:, None]
-        t_of_v = torch.where(used, shard_base + tloc_safe,
-                             torch.full_like(tloc, t_pad_total))
-        last_v = ((torch.arange(s_n, device=dev) * l_v)[:, None]
-                  + cum - 1).reshape(-1)[:t_total]
-        tile_overflow = torch.sum(torch.clamp(cnt2 - nw * kcap, min=0),
-                                  dtype=torch.int64)
-        exact = dict(t_of_v=t_of_v.reshape(-1).to(i32),
-                     wt=wt2.reshape(-1).to(i32),
-                     last_v=last_v.to(i32),
-                     vcounts=vcounts.reshape(-1).to(i32))
-        gather_starts = starts_v.reshape(-1).to(i32)
+        with span("binning.windows"):
+            exact, gather_starts, tile_overflow, granted = _windows(
+                counts, starts, t_total, tile_capacity, exact_extra,
+                exact_shards)
+        count("binning.extra_windows", granted)
         gather_counts = exact["vcounts"]
     else:
         tile_overflow = torch.sum(torch.clamp(counts - tile_capacity, min=0),
@@ -421,21 +387,85 @@ def _bin(proj, height, width, max_dup, tile_capacity, dup_tails,
         exact = dict()
         gather_starts, gather_counts = starts, counts
 
-    # Masked slots carry the sentinel rank n (one past the last attr row).
-    gather = slab_gather(sorted_vals, gather_starts, gather_counts,
-                         tile_capacity, rank_bits, n)
-    k = torch.arange(tile_capacity, dtype=i32, device=dev)
-    mask = k[None, :] < torch.clamp(gather_counts, max=tile_capacity)[:, None]
-    if with_seg_pos:
-        # Per-RANK emitted-pair counts, then their exclusive prefix.
-        er = torch.zeros_like(emitted)
-        er[inv_rank.to(torch.int64)] = emitted
-        exact["seg_pos"] = torch.cat([
-            torch.zeros(1, dtype=i32, device=dev),
-            torch.cumsum(er, 0, dtype=torch.int64).to(i32)])
+    with span("binning.k5"):
+        # Masked slots carry the sentinel rank n (one past the last attr row).
+        gather = slab_gather(sorted_vals, gather_starts, gather_counts,
+                             tile_capacity, rank_bits, n)
+        k = torch.arange(tile_capacity, dtype=i32, device=dev)
+        mask = k[None, :] < torch.clamp(gather_counts,
+                                        max=tile_capacity)[:, None]
+        if with_seg_pos:
+            # Per-RANK emitted-pair counts, then their exclusive prefix.
+            er = torch.zeros_like(emitted)
+            er[inv_rank.to(torch.int64)] = emitted
+            exact["seg_pos"] = torch.cat([
+                torch.zeros(1, dtype=i32, device=dev),
+                torch.cumsum(er, 0, dtype=torch.int64).to(i32)])
 
+    count("binning.rows", n)
+    count("binning.slots", n * scan)
+    count("binning.covered", covered)
+    count("binning.kept", kept)
+    count("binning.pairs", counts)
     return TileBins(order=order_out, rank=rank_out, gather=gather, mask=mask,
                     counts=counts, dup_overflow=dup_overflow,
                     tile_overflow=tile_overflow,
                     tiles_x=tiles_x, tiles_y=tiles_y,
                     vis_overflow=vis_overflow, **exact)
+
+
+def _windows(counts, starts, t_total, kcap, exact_extra, s_n):
+    """Exact (virtual-tile) mode's windows: every real tile gets one K-wide
+    window; tiles needing more draw extras from the budget in tile order.
+    A tile's windows stay consecutive.  ``s_n`` (``exact_shards``) gives
+    each shard of the (padded) tile range its own budget exact_extra / S.
+    Returns (the ``TileBins`` fields of exact mode, each window's start in
+    the sorted pairs, ``tile_overflow``, the extra windows granted a tile
+    [S, L])."""
+    dev, i32 = counts.device, torch.int32
+    if exact_extra % s_n:
+        raise ValueError("exact_extra must divide by exact_shards")
+    t_pad_total = -(-t_total // s_n) * s_n
+    pad_t = t_pad_total - t_total
+    pad = torch.zeros((pad_t,), dtype=i32, device=dev)
+    cnt_p = torch.cat([counts, pad])
+    st_p = torch.cat([starts, pad])
+    ln = t_pad_total // s_n
+    e_s = exact_extra // s_n
+    l_v = ln + e_s
+    cnt2 = cnt_p.reshape(s_n, ln)
+    nw_need = torch.clamp(-torch.div(-cnt2, kcap, rounding_mode="floor"),
+                          min=1)
+    extra_need = nw_need - 1
+    ecum = torch.cumsum(extra_need, dim=1) - extra_need
+    granted = torch.minimum(torch.clamp(e_s - ecum, min=0), extra_need)
+    nw = 1 + granted
+    cum = torch.cumsum(nw, dim=1)                            # [S, L]
+    vv = torch.arange(l_v, dtype=cum.dtype, device=dev)
+    tloc = torch.searchsorted(cum.contiguous(),
+                              vv[None, :].expand(s_n, l_v).contiguous(),
+                              right=True)                    # [S, L_v]
+    used = tloc < ln
+    tloc_safe = torch.clamp(tloc, max=ln - 1)
+
+    def take(a):
+        return torch.gather(a, 1, tloc_safe)
+
+    zv = torch.zeros_like(tloc)
+    wt2 = torch.where(used, vv[None, :] - (take(cum) - take(nw)), zv)
+    starts_v = torch.where(used, take(st_p.reshape(s_n, ln)) + wt2 * kcap,
+                           zv)
+    vcounts = torch.where(
+        used, torch.clamp(take(cnt2) - wt2 * kcap, 0, kcap), zv)
+    shard_base = (torch.arange(s_n, device=dev) * ln)[:, None]
+    t_of_v = torch.where(used, shard_base + tloc_safe,
+                         torch.full_like(tloc, t_pad_total))
+    last_v = ((torch.arange(s_n, device=dev) * l_v)[:, None]
+              + cum - 1).reshape(-1)[:t_total]
+    tile_overflow = torch.sum(torch.clamp(cnt2 - nw * kcap, min=0),
+                              dtype=torch.int64)
+    exact = dict(t_of_v=t_of_v.reshape(-1).to(i32),
+                 wt=wt2.reshape(-1).to(i32),
+                 last_v=last_v.to(i32),
+                 vcounts=vcounts.reshape(-1).to(i32))
+    return exact, starts_v.reshape(-1).to(i32), tile_overflow, granted

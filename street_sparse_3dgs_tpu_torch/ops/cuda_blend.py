@@ -52,6 +52,7 @@ from typing import NamedTuple
 import torch
 
 from .. import native
+from ..profiling import span
 from .binning import TILE, TileBins, permute_rows
 from .oracle import ALPHA_MAX, ALPHA_MIN, T_EPS
 
@@ -813,13 +814,15 @@ class _BlendExact(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_out):
-        attrs, vcounts, wt, last_v, bg, saved, order = ctx.saved_tensors
-        g_out = g_out.to(torch.float32).contiguous()
-        if order is not None:
-            g_out = g_out.masked_fill(_outside(order, g_out.shape[0]), 0.0)
-        d = blend_exact_bwd(attrs, vcounts, wt, last_v, bg, saved, g_out,
-                            *ctx.grid, order=order)
-        g_bg = background_grad(saved, g_out, False)
+        with span("blend.k4"):
+            attrs, vcounts, wt, last_v, bg, saved, order = ctx.saved_tensors
+            g_out = g_out.to(torch.float32).contiguous()
+            if order is not None:
+                g_out = g_out.masked_fill(_outside(order, g_out.shape[0]),
+                                          0.0)
+            d = blend_exact_bwd(attrs, vcounts, wt, last_v, bg, saved, g_out,
+                                *ctx.grid, order=order)
+            g_bg = background_grad(saved, g_out, False)
         return d, None, None, None, g_bg, None, None, None
 
 
@@ -887,20 +890,22 @@ def slot_grads_to_rows(d_slots: torch.Tensor, ids: torch.Tensor, m: int,
     ``tile_overflow == 0``, as in JAX) or, without it, from the sorted ids
     themselves.  ``grad_sort="bf16"`` rounds each slot's grad to bf16 before
     the sum, as the JAX packed sort does."""
-    sorted_ids, perm = torch.sort(ids.reshape(-1), stable=True)
-    vals = d_slots[perm]
-    if grad_sort == "bf16":
-        vals = _round_bf16(vals)
-    if seg_pos is None:
-        offsets = torch.searchsorted(
-            sorted_ids, torch.arange(m + 1, dtype=sorted_ids.dtype,
-                                     device=ids.device))
-    else:
-        # Clamped so that an overflowing counts step (whose update the
-        # train step reverts) cannot index past the slots.
-        offsets = torch.clamp(seg_pos, max=vals.shape[0])
-    return torch.segment_reduce(vals, "sum", offsets=offsets.to(torch.int64),
-                                axis=0, unsafe=True)
+    with span("blend.slot_grads"):
+        sorted_ids, perm = torch.sort(ids.reshape(-1), stable=True)
+        vals = d_slots[perm]
+        if grad_sort == "bf16":
+            vals = _round_bf16(vals)
+        if seg_pos is None:
+            offsets = torch.searchsorted(
+                sorted_ids, torch.arange(m + 1, dtype=sorted_ids.dtype,
+                                         device=ids.device))
+        else:
+            # Clamped so that an overflowing counts step (whose update the
+            # train step reverts) cannot index past the slots.
+            offsets = torch.clamp(seg_pos, max=vals.shape[0])
+        return torch.segment_reduce(vals, "sum",
+                                    offsets=offsets.to(torch.int64),
+                                    axis=0, unsafe=True)
 
 
 class _GatherPack(torch.autograd.Function):
@@ -987,24 +992,28 @@ def blend_tiles_pallas(
     segments from ``bins.seg_pos`` when binning made them.  ``tile_batch``
     is a TPU knob, accepted for interface parity; it changes nothing
     here."""
-    tiles_x, tiles_y = bins.tiles_x, bins.tiles_y
-    k_cap = bins.gather.shape[1]
-    if k_cap % 128 != 0:
-        raise ValueError(f"tile_capacity must be a multiple of 128, "
-                         f"got {k_cap}")
-    exact = bins.t_of_v is not None
-    attrs = pack_gather_attrs(bins.gather, mean2d, conic, color, opacity,
-                              inv_depth, dtype=attr_dtype, order=bins.order,
-                              rank=bins.rank, grad_sort=grad_sort,
-                              seg_pos=bins.seg_pos, pair_major=exact)
-    bg2 = bg.reshape(1, 3).to(torch.float32).contiguous()
-    if exact:
-        out = blend_exact(attrs, bins.vcounts, bins.wt, bins.last_v, bg2,
-                          tiles_x)
-    else:
-        out = blend_padded(attrs, bins.counts.to(torch.int32).contiguous(),
-                           bg2, tiles_x)
-    image = _to_image(out[:, OR:OB + 1], tiles_x, tiles_y, height, width)
-    invdepth = _to_image(out[:, OI:OI + 1], tiles_x, tiles_y, height, width)
-    alpha = _to_image(out[:, OA:OA + 1], tiles_x, tiles_y, height, width)[0]
-    return image, invdepth, alpha
+    with span("blend.k3"):
+        tiles_x, tiles_y = bins.tiles_x, bins.tiles_y
+        k_cap = bins.gather.shape[1]
+        if k_cap % 128 != 0:
+            raise ValueError(f"tile_capacity must be a multiple of 128, "
+                             f"got {k_cap}")
+        exact = bins.t_of_v is not None
+        attrs = pack_gather_attrs(bins.gather, mean2d, conic, color, opacity,
+                                  inv_depth, dtype=attr_dtype,
+                                  order=bins.order, rank=bins.rank,
+                                  grad_sort=grad_sort, seg_pos=bins.seg_pos,
+                                  pair_major=exact)
+        bg2 = bg.reshape(1, 3).to(torch.float32).contiguous()
+        if exact:
+            out = blend_exact(attrs, bins.vcounts, bins.wt, bins.last_v, bg2,
+                              tiles_x)
+        else:
+            out = blend_padded(attrs, bins.counts.to(torch.int32).contiguous(),
+                               bg2, tiles_x)
+        image = _to_image(out[:, OR:OB + 1], tiles_x, tiles_y, height, width)
+        invdepth = _to_image(out[:, OI:OI + 1], tiles_x, tiles_y, height,
+                             width)
+        alpha = _to_image(out[:, OA:OA + 1], tiles_x, tiles_y, height,
+                          width)[0]
+        return image, invdepth, alpha

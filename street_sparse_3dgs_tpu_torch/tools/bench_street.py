@@ -4,7 +4,8 @@ counterpart of ``tools/bench_street.py``.
 Measures the forward+backward differentiable render at a street-profile
 scene (``make_street_scene``) on the card and prints the scene statistics
 of camera 0 (stderr), a one-line JSON summary, and with ``--profile`` the
-per-kernel device-time breakdown of one timed run::
+per-kernel device-time breakdown of one timed run, with the program's
+spans, its counters a step and the binning scan's yield::
 
     python -m street_sparse_3dgs_tpu_torch.tools.bench_street \\
         --n 1000000 --width 1920 --height 1088 --max-dup 16 \\
@@ -254,7 +255,17 @@ def main(argv=None, scene=None) -> dict:
         rows_t = summarize_trace(trace._replace(iters=args.iters),
                                  device_only=dev.type == "cuda")
         print_summary(rows_t, top=28)
-        rec["profile"] = {"top": rows_t[:28]}
+        # The program's counters a step; the scan's yield is the share of
+        # its (row, tile) slots that survive the cull.
+        ctrs = {k: v / args.iters for k, v in trace.counters.items()}
+        rec["profile"] = {"top": rows_t[:28], "counters": ctrs}
+        if ctrs.get("binning.slots"):
+            rec["profile"]["scan_yield"] = (100.0 * ctrs["binning.kept"]
+                                            / ctrs["binning.slots"])
+        print("counters a step: " + "  ".join(
+            f"{k} {v:g}" for k, v in ctrs.items()))
+        if "scan_yield" in rec["profile"]:
+            print(f"scan_yield {rec['profile']['scan_yield']:.4f}%")
         if dev.type == "cuda":
             rec["profile"].update(device_summary(trace))
     return {**rec, "stats": s, "grads": last["grads"]}

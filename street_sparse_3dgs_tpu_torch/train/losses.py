@@ -17,6 +17,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..profiling import sync_point
+
 _C1 = 0.01 ** 2
 _C2 = 0.03 ** 2
 
@@ -47,8 +49,9 @@ def _gaussian_window(window_size: int, sigma: float) -> np.ndarray:
 def _blur(img: torch.Tensor, window_size: int = 11,
           sigma: float = 1.5) -> torch.Tensor:
     """Depthwise Gaussian blur of a [C, H, W] image, zero padding."""
-    w = torch.as_tensor(_gaussian_window(window_size, sigma),
-                        device=img.device)
+    with sync_point("ssim_window"):     # a copy from pageable host memory
+        w = torch.as_tensor(_gaussian_window(window_size, sigma),
+                            device=img.device)
     pad = window_size // 2
     x = img[:, None]                                     # [C, 1, H, W]
     x = F.conv2d(x, w.reshape(1, 1, window_size, 1), padding=(pad, 0))

@@ -13,9 +13,12 @@ Reference semantics (``train_post.py:31-198``):
 
 The cut is the vectorized mask form (``hierarchy/structure.py``); the dense
 Adam is the masked sparse Adam with an all-rows mask.  The step is a Python
-callable that makes no host sync; its counter ``PostTrainState.step`` is a
-CPU scalar, as ``TrainState.step`` is.  ``CompactPostDriver`` runs the
-O(cut) compacted form with a capacity that grows on overflow.
+callable; its counter ``PostTrainState.step`` is a CPU scalar, as
+``TrainState.step`` is.  It waits for the device where the train step does
+in the projection, binning and SSIM (``profiling.sync_point`` s
+``project_size``, ``binning_alpha_min``, ``ssim_window``).
+``CompactPostDriver`` runs the O(cut) compacted form with a capacity that
+grows on overflow.
 """
 
 from __future__ import annotations

@@ -7,10 +7,15 @@ nonzero, the exposure Adam step, the scheduled learning rates, the
 densification statistics and the optional big-Gaussian clamp.
 
 PyTorch runs eagerly, so the step is a Python callable (``TrainStep``)
-rather than a compiled program.  It makes no host sync: the step counter
-``TrainState.step`` is a CPU scalar (the schedules and the SH warm-up read
-it for free), every other state tensor lives on the parameters' device, and
-the counts-mode revert selects with ``torch.where`` on the device.
+rather than a compiled program.  The step counter ``TrainState.step`` is a
+CPU scalar (the schedules and the SH warm-up read it for free), every other
+state tensor lives on the parameters' device, and the counts-mode revert
+selects with ``torch.where`` on the device.  The host still waits for the
+device at nine places a step on CUDA, each a ``profiling.sync_point``: the
+exposure row read and written through a 0-d device ``image_index``
+(``exposure_row``, ``exposure_grad``), and the small tensors copied from
+pageable host memory in the projection (``project_size``), binning
+(``binning_alpha_min``) and each of SSIM's five blurs (``ssim_window``).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from ..models.gaussians import (GaussianMeta, GaussianParams,
                                 apply_exposure, clamp_big_gaussians,
                                 init_exposure, sh_coeffs)
 from ..ops.rasterize import RasterConfig, rasterize
+from ..profiling import span, sync_point
 from . import losses
 
 
@@ -216,15 +222,17 @@ class TrainStep:
                 batch: CameraBatch, active_sh: int, depth_w: float,
                 bg: torch.Tensor):
         """(loss, image, raster outputs) of one view."""
-        out = rasterize(params.xyz, activate_scales(params), params.quats,
-                        activate_opacity(params, self.meta),
-                        sh_coeffs(params), batch.camera, active_sh, bg,
-                        self.cfg, active_mask=active,
-                        mean2d_residual=mean2d_res)
-        loss, image = view_loss(
-            out["render"], out["depth"], batch,
-            exposure_row if self.use_exp else None, self.opt, depth_w,
-            self.depth_maps_weight, self.is_depth_only)
+        with span("train.forward"):
+            out = rasterize(params.xyz, activate_scales(params), params.quats,
+                            activate_opacity(params, self.meta),
+                            sh_coeffs(params), batch.camera, active_sh, bg,
+                            self.cfg, active_mask=active,
+                            mean2d_residual=mean2d_res)
+        with span("train.loss"):
+            loss, image = view_loss(
+                out["render"], out["depth"], batch,
+                exposure_row if self.use_exp else None, self.opt, depth_w,
+                self.depth_maps_weight, self.is_depth_only)
         return loss, image, out
 
     def value_and_grad(self, state: TrainState, batch: CameraBatch,
@@ -232,8 +240,10 @@ class TrainStep:
         """(loss, image, out, grads of params, exposure row, screen)."""
         params = GaussianParams(*(p.detach().requires_grad_(True)
                                   for p in state.params))
-        exposure_row = state.exposure[batch.image_index].detach() \
-            .requires_grad_(True)
+        # A 0-d index tensor is read to the host (``.item()``).
+        with sync_point("exposure_row"):
+            exposure_row = state.exposure[batch.image_index].detach() \
+                .requires_grad_(True)
         mean2d_res = torch.zeros((params.xyz.shape[0], 2),
                                  device=params.xyz.device,
                                  requires_grad=True)
@@ -241,7 +251,8 @@ class TrainStep:
                                         state.active, batch, active_sh,
                                         depth_w, bg)
         inputs = (*params, exposure_row, mean2d_res)
-        grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+        with span("train.backward"):
+            grads = torch.autograd.grad(loss, inputs, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g
                  for x, g in zip(inputs, grads)]
         return (loss.detach(), image.detach(), out,
@@ -250,9 +261,14 @@ class TrainStep:
     # -- the step -----------------------------------------------------------
     def __call__(self, state: TrainState, batch: CameraBatch,
                  bg: torch.Tensor | None = None):
+        it = int(state.step) + 1
+        with span("train.step", str(it)):
+            return self._step(state, batch, bg, it)
+
+    def _step(self, state: TrainState, batch: CameraBatch,
+              bg: torch.Tensor | None, it: int):
         meta = self.meta
         active_sh = self.active_sh(state)
-        it = int(state.step) + 1
         xyz_lr, exp_lr, depth_w = self._lrs(it)
         dev = state.params.xyz.device
         if bg is None:
@@ -282,13 +298,15 @@ class TrainStep:
             # Exposure Adam, dense over the whole table.
             if self.use_exp:
                 g_exp = torch.zeros_like(state.exposure)
-                g_exp[batch.image_index] = g_exposure_row
+                with sync_point("exposure_grad"):
+                    g_exp[batch.image_index] = g_exposure_row
                 new_exposure, new_exp_adam = adam.dense_step(
                     state.exposure, g_exp, state.exposure_adam, exp_lr)
             else:
                 new_exposure, new_exp_adam = (state.exposure,
                                               state.exposure_adam)
 
+        with torch.no_grad(), span("train.stats"):
             # Densification statistics.
             visible = out["visibility"] & state.active
             stats = densify.add_stats(

@@ -1,6 +1,6 @@
 """Shared runtime utilities, mirroring ``street_sparse_3dgs_tpu/utils.py``:
 deterministic host state, timestamped logging, per-stage wall-clock timing
-with optional profiler traces, and the loss meter.
+and the loss meter.
 
   - ``safe_state``: host RNG seeding (Python, numpy and torch's default
     generator) and timestamped stdout (the reference's
@@ -8,8 +8,8 @@ with optional profiler traces, and the loss meter.
     explicit ``torch.Generator`` objects;
   - ``stage_timer``: per-stage durations appended to
     ``training_pipeline_timing.txt`` (``complete_training.sh:16-60``), the
-    card synchronised before the end time is read, and a ``torch.profiler``
-    trace on request.
+    card synchronised before the end time is read (``profiling.trace_fn``
+    traces a stage's work where a trace is wanted).
 """
 
 from __future__ import annotations
@@ -63,30 +63,15 @@ def _sync_card() -> None:
 
 
 @contextlib.contextmanager
-def stage_timer(name: str, log_path: str | Path | None = None,
-                profile_dir: str | Path | None = None):
+def stage_timer(name: str, log_path: str | Path | None = None):
     """Time a pipeline stage; append ``<name>: <seconds>`` to the timing log
-    (the run_and_log format) and optionally write a ``torch.profiler``
-    Chrome trace to ``profile_dir/<name>/trace.json``.  The card is
-    synchronised before the end time is read, so that a stage's time
-    includes its queued device work."""
-    prof = None
-    if profile_dir is not None:
-        from torch.profiler import ProfilerActivity, profile
-
-        acts = [ProfilerActivity.CPU]
-        if torch.cuda.is_available():
-            acts.append(ProfilerActivity.CUDA)
-        prof = profile(activities=acts)
+    (the run_and_log format).  The card is synchronised before the end
+    time is read, so that a stage's time includes its queued device
+    work."""
     t0 = time.time()
-    with prof if prof is not None else contextlib.nullcontext():
-        yield
-        _sync_card()
+    yield
+    _sync_card()
     dt = time.time() - t0
-    if prof is not None:
-        out = Path(profile_dir) / name
-        out.mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(out / "trace.json"))
     line = f"{name}: {dt:.2f} s"
     print(line)
     if log_path is not None:

@@ -4,8 +4,8 @@ JAX package on the same inputs:
 - ``config``: the same flags and defaults, equal dataclasses from a sample
   argv, ``cfg_args`` byte-identical, and a snapshot written by one package
   loading in the other with explicit overrides;
-- ``utils``: ``stage_timer``'s line and log in JAX's format (and a
-  ``torch.profiler`` trace), ``safe_state``'s seeding and line stamps;
+- ``utils``: ``stage_timer``'s line and log in JAX's format,
+  ``safe_state``'s seeding and line stamps;
 - ``parallel/distributed``: ``host_identity``'s results and errors
   uninitialised, and a 1-process ``gloo`` group joined from the
   ``SS3DGS_*`` variables in a subprocess;
@@ -117,8 +117,7 @@ def test_cfg_args_byte_identical_and_cross_load(tmp_path):
 
 def test_stage_timer_matches_jax(tmp_path, capsys):
     """The printed line and the appended log line: ``<name>: <s> s`` with
-    two decimals, as JAX's; a profiler trace lands under the stage's
-    name."""
+    two decimals, as JAX's."""
     for mod, log in ((tutils, tmp_path / "t.txt"), (jutils, tmp_path / "j.txt")):
         for name in ("coarse", "chunk_0_0_train"):
             with mod.stage_timer(name, log):
@@ -131,10 +130,6 @@ def test_stage_timer_matches_jax(tmp_path, capsys):
     assert [ln.split(":")[0] for ln in t_lines] == \
         [ln.split(":")[0] for ln in j_lines] == ["coarse", "chunk_0_0_train"]
     assert all(pat.match(ln) for ln in t_lines + j_lines)
-    with tutils.stage_timer("traced", profile_dir=tmp_path / "prof"):
-        torch.ones(8).sum()
-    assert json.loads((tmp_path / "prof" / "traced" / "trace.json")
-                      .read_text())["traceEvents"]
 
 
 def test_safe_state_matches_jax():

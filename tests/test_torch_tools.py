@@ -215,7 +215,18 @@ def test_bench_street_profile_prints_a_summary(capsys):
                              "48", "--iters", "1", "--warmup", "0",
                              "--device", "cpu", "--profile"])
     assert rec["profile"]["top"]
-    assert "count  name" in capsys.readouterr().out
+    printed = capsys.readouterr().out
+    assert "count  name" in printed
+    # The program's counters of the one step, and the scan's yield.
+    ctrs = rec["profile"]["counters"]
+    assert ctrs["binning.rows"] == 2000
+    assert ctrs["binning.pairs"] == rec["pairs"]
+    assert 0 < ctrs["binning.kept"] <= ctrs["binning.covered"] \
+        <= ctrs["binning.slots"]
+    assert rec["profile"]["scan_yield"] == pytest.approx(
+        100 * ctrs["binning.kept"] / ctrs["binning.slots"])
+    assert "counters a step: binning.covered" in printed
+    assert f"scan_yield {rec['profile']['scan_yield']:.4f}%" in printed
 
 
 # ---- microbench ---------------------------------------------------------------
