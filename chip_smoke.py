@@ -30,7 +30,8 @@ plain PyTorch version:
 4. render  — the street scene (1M Gaussians, 4 views, 1920x1088) through
              ``rasterize(method="pallas")`` in the production exact config
              (K3) and a padded config (K1); every image is compared with the
-             plain path on the same inputs;
+             plain path on the same inputs, each view's ``bin_scan`` with
+             ``bin_scan_plain`` (exactly);
 5. hierarchy — a LOD hierarchy over the same rows, saved to ``.hier.npz``
              and loaded back, rendered per view at tau in {0, 3, 6, 15}
              through ``pixel_limit -> select_cut -> render_cut_compact``;
@@ -171,7 +172,8 @@ plain PyTorch version:
 24. fork_features — ``tools/fork_features`` both arms (pallas exact: K5,
              K3, K4) at the same cut, ``results.json`` per arm, the
              report, a rerun that skips;
-25. kernels_street — K1-K5 timed at the shapes of phases 4, 8, 9, and K3,
+25. kernels_street — K1-K5 timed at the shapes of phases 4, 8, 9 (and
+             ``bin_scan`` at phase 4's view 0, held exactly), and K3,
              K4 at those of phases 11, 12 and 14, K1 at phase 9's and 16's,
              K2 at phase 10's, K5 at phase 16's, and each kernel at the
              shapes of its first call in each of phases 18-24 (held
@@ -4252,7 +4254,7 @@ def main() -> int:
             ms, out = timed_runs(lambda: rasterize(*rows, cam, 3, bg, cfg))
             renders.append((v, cname, ms, out))
     launches_render = dict(native.LAUNCHES)
-    for name in ("blend_padded", "blend_exact", "slab_gather"):
+    for name in ("blend_padded", "blend_exact", "slab_gather", "bin_scan"):
         if launches_render[name] == 0:
             raise AssertionError(f"render path never launched {name}")
 
@@ -4266,11 +4268,17 @@ def main() -> int:
         cfg = configs[cname]
         blend_name = "blend_exact" if cfg.exact_extra else "blend_padded"
         with Recorder(binning, "slab_gather") as k5, \
+                Recorder(binning, "bin_scan") as bs, \
                 Recorder(cb, blend_name) as kb:
             again = rasterize(*rows, cam, 3, bg, cfg)
         k5_args, k5_out = k5.calls[0]
         if not torch.equal(k5_out, binning.slab_gather_plain(*k5_args)):
             raise AssertionError(f"K5 view {v} {cname}: table differs")
+        bs_args, bs_out = bs.calls[0]
+        if not all(torch.equal(k, p) for k, p in zip(
+                bs_out, binning.bin_scan_plain(*bs_args))):
+            raise AssertionError(f"bin_scan view {v} {cname}: differs from "
+                                 "plain")
         b_args, b_out = kb.calls[0]
         plain_fn = (cb.blend_exact_plain if cfg.exact_extra
                     else cb.blend_padded_plain)
@@ -4302,7 +4310,8 @@ def main() -> int:
             raise AssertionError(f"view {v} {cname}: bad image")
         if v == 0:
             street[cname] = dict(k5=k5_args, k5_out=k5_out, blend=b_args,
-                                 blend_out=b_out, plain_out=p_out)
+                                 blend_out=b_out, plain_out=p_out,
+                                 scan=bs_args, scan_out=bs_out)
         per_view.append({
             "view": v, "config": cname, "ms": ms,
             # Binned pairs: window counts plus what the budget dropped, or
@@ -4486,7 +4495,7 @@ def main() -> int:
                **{p: r["launches"] for p, r in tools_rec.items()}}
 
     def launches_of(key):
-        by = {p: c[key] for p, c in counted.items() if c[key]}
+        by = {p: c[key] for p, c in counted.items() if c.get(key)}
         return {"launches": sum(by.values()), "launches_by_phase": by}
 
     n_renders = {"blend_padded": len(scene.cameras),
@@ -4795,6 +4804,51 @@ def main() -> int:
         "tolerance": "exactly equal", **k5, "shapes": "street view 0",
         "at_post_opt": k5_post, "at_merge_eval": k5_merge,
         "at_full_train": k5_ft, "at_viewer_app": k5_viewer})
+    # bin_scan on view 0's projected rows (the exact config; the padded
+    # config's call, the same rows and scan, was held in phase render).
+    # ``ms`` is the kernel alone on the wrapper's cap; ``wall_ms`` the
+    # wrapper (the cap's [N] ops and its pageable copy, host cost included).
+    bs_args, bs_out = ex["scan"], ex["scan_out"]
+    mean2d, conic, radius, opacity, valid, tiles_x, tiles_y, scan = bs_args
+    n_rows = mean2d.shape[0]
+    qcap = binning._qcap(opacity)
+    kept_k, cov_k, tid_k = (torch.empty_like(x) for x in bs_out)
+
+    def bin_scan_kernel():
+        native.launch("bin_scan", mean2d.data_ptr(), conic.data_ptr(),
+                      radius.data_ptr(), valid.data_ptr(), qcap.data_ptr(),
+                      n_rows, tiles_x, tiles_y, scan, kept_k.data_ptr(),
+                      cov_k.data_ptr(), tid_k.data_ptr())
+
+    bs_ms = device_ms(bin_scan_kernel, 50)
+    if not all(torch.equal(a, b) for a, b in zip((kept_k, cov_k, tid_k),
+                                                 bs_out)):
+        raise AssertionError("bin_scan: a bare launch differs from the "
+                             "wrapper's")
+    # Bytes: mean2d, conic, radius, valid and qcap read once, kept,
+    # coverage and the [N, scan] table written once.
+    bs_bytes = n_rows * (8 + 12 + 4 + 1 + 4 + 4 + 4 + 4 * scan)
+    plain_out = binning.bin_scan_plain(*bs_args)
+    kernels.append({
+        "name": "bin_scan", "route": "cuda",
+        "source": "street_sparse_3dgs_tpu_torch/csrc/bin_scan.cu",
+        "replaces": "none (ops/binning.py bin_scan_plain: the [N, S] slot "
+                    "scan and the per-row tile sort)",
+        **launches_of("bin_scan"),
+        "tolerance": "exactly equal (kept, coverage, tile_id)",
+        "max_abs_err": max(int((a - b).abs().max()) if a.numel() else 0
+                           for a, b in zip(bs_out, plain_out)),
+        "ms": bs_ms,
+        "wall_ms": event_ms(lambda: binning.bin_scan(*bs_args), 50),
+        "plain_ms": event_ms(lambda: binning.bin_scan_plain(*bs_args), 5),
+        "bound_ms": bs_bytes / PEAK_BYTES_S * 1e3, "bound_by": "bytes",
+        "library_ms": None, "shapes": "street view 0 (exact config)",
+        "rows": n_rows, "scan": scan,
+        "covered_slots": int(torch.clamp(bs_out[1], max=scan).sum()),
+        "kept_slots": int(bs_out[0].sum())})
+    if kernels[-1]["max_abs_err"]:
+        raise AssertionError("bin_scan: kernel differs from plain")
+    del bs_args, bs_out, plain_out, qcap, kept_k, cov_k, tid_k
     # K1-K5 at the tools' shapes (phases 18-24): each phase's first call of
     # each kernel held against the plain version, timed and bounded.
     for phase, rec in tools_rec.items():

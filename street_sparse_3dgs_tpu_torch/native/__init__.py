@@ -25,7 +25,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNELS = ("blend_padded", "blend_exact", "slab_gather", "blend_padded_bwd",
-           "blend_exact_bwd", "blend_exact_stub")
+           "blend_exact_bwd", "blend_exact_stub", "bin_scan")
 # No --use_fast_math (expf/log1pf stay the accurate versions) and no FMA
 # contraction (-fmad=false): every product rounds on its own, as in the
 # plain PyTorch versions, so a slot whose alpha sits on the 1/255 skip
@@ -61,6 +61,9 @@ _ARGTYPES = {
     # len(pass2) = len(combine), drop, part, out, stream
     "blend_exact_stub": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
                          _I, _P, _P, _I, _P, _P, _P, _P],
+    # mean2d, conic, radius, valid, qcap, N, tiles_x, tiles_y, scan, kept,
+    # coverage, tile_id, stream
+    "bin_scan": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
 }
 _fns: dict = {}
 

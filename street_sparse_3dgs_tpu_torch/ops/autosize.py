@@ -9,7 +9,7 @@ Two measurements per sampled view:
 
 1. **Emission ladder**: the surviving-tile counts (``kept``) of the
    ``probe_rows`` rows of largest rect coverage, counted exactly over up to
-   ``probe_scan`` rect positions; every other row is bounded by its
+   ``probe_scan`` rect positions (``bin_scan``); every other row is bounded by its
    coverage (kept <= coverage).  ``derive_ladder`` (host numpy, as in JAX)
    turns the merged profile into the tail-bucket ladder.
 2. **Window budget**: a stats-only ``bin_gaussians`` per view (K5 builds
@@ -29,8 +29,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .binning import _tile_qmin, bin_gaussians, num_tiles, tile_rect
-from .oracle import ALPHA_MIN
+from .binning import bin_gaussians, bin_scan, num_tiles, tile_rect
 from .preprocess import Projected, project_gaussians
 
 
@@ -59,34 +58,9 @@ def _kept_probe(proj: Projected, rows: torch.Tensor, scan: int,
     """[R] int32 exact surviving-tile count of ``rows`` (the ellipse
     culling of ``bin_gaussians``), evaluating up to ``scan`` rect
     positions."""
-    mean2d = proj.mean2d[rows]
-    conic = proj.conic[rows]
-    opacity = proj.opacity[rows]
-    valid = proj.valid[rows]
-    x0, y0, x1, y1 = tile_rect(mean2d, proj.radius[rows], tiles_x, tiles_y)
-    zero = torch.zeros_like(x0)
-    nx = torch.where(valid, x1 - x0, zero)
-    ny = torch.where(valid, y1 - y0, zero)
-    coverage = nx * ny
-    slots = torch.arange(scan, dtype=torch.int32, device=rows.device)
-    nx_safe = torch.clamp(nx, min=1)
-    inv_nx = 1.0 / nx_safe.to(torch.float32)
-    sy = torch.floor((slots[None, :].to(torch.float32) + 0.5)
-                     * inv_nx[:, None]).to(torch.int32)
-    sx = slots[None, :] - sy * nx_safe[:, None]
-    tile_x = x0[:, None] + sx
-    tile_y = y0[:, None] + sy
-    in_range = slots[None, :] < torch.clamp(coverage, max=scan)[:, None]
-    qmin = _tile_qmin(mean2d, conic, tile_x, tile_y)
-    log_amin = torch.log(torch.tensor(ALPHA_MIN * (1.0 - 1e-3),
-                                      dtype=torch.float32,
-                                      device=rows.device))
-    qcap = 2.0 * (torch.where(opacity > 0.0,
-                              torch.log(torch.clamp(opacity, min=1e-30)),
-                              torch.full_like(opacity, -math.inf))
-                  - log_amin)
-    keep = in_range & (qmin <= qcap[:, None])
-    return torch.sum(keep, dim=1, dtype=torch.int32)
+    return bin_scan(proj.mean2d[rows], proj.conic[rows], proj.radius[rows],
+                    proj.opacity[rows], proj.valid[rows], tiles_x, tiles_y,
+                    scan)[0]
 
 
 def _ceil_pow2(x: int) -> int:

@@ -7,6 +7,10 @@ window allocation, so the port's ``TileBins`` equal the JAX ones element by
 element.  What differs is only how the GPU gets there:
 
 - the depth order is a stable ``torch.sort`` (culled rows tie at +inf);
+- the slot scan and its per-row compaction (JAX: [N, S] slot math, then a
+  per-row sort) are one kernel, ``bin_scan`` (``csrc/bin_scan.cu``), on
+  CUDA tensors: a row's kept tile ids rise with the slot index, so
+  compacting them in slot order gives the sorted row without a sort;
 - pair keys pack ``tile << rank_bits | rank`` into int64, so one sort of
   unique keys serves every JAX ``key_mode`` (the lexicographic fallback the
   TPU needs for keys over 32 bits is not needed);
@@ -44,6 +48,9 @@ DUP_OVERSCAN = 4
 # Tail buckets (budget, extra_width) for gaussians whose surviving-tile
 # count exceeds max_dup (see the JAX module for how they were sized).
 DUP_TAILS: tuple[tuple[int, int], ...] = ((8192, 32), (512, 96))
+
+# Past a row's kept tiles in ``bin_scan``'s table.
+TILE_SENTINEL = 2 ** 31 - 1
 
 
 class TileBins(NamedTuple):
@@ -189,6 +196,116 @@ def _tile_qmin(mean2d, conic, tile_x, tile_y):
     return torch.where(inside, torch.zeros_like(q), q)
 
 
+def slot_tiles(x0: torch.Tensor, y0: torch.Tensor, nx: torch.Tensor,
+               scan: int):
+    """Tile (x, y) of each row's first ``scan`` rect slots [N, S], row-major
+    from the rect's corner (x0, y0) with ``nx`` tiles a rect row (0 taken as
+    1): sy = slot // nx through the reciprocal, exactly as the JAX module
+    does (exact at these magnitudes; see its note)."""
+    i32 = torch.int32
+    slots = torch.arange(scan, dtype=i32, device=x0.device)   # [S]
+    nx_safe = torch.clamp(nx, min=1)
+    inv_nx = 1.0 / nx_safe.to(torch.float32)
+    sy = torch.floor((slots[None, :].to(torch.float32) + 0.5)
+                     * inv_nx[:, None]).to(i32)
+    sx = slots[None, :] - sy * nx_safe[:, None]
+    return x0[:, None] + sx, y0[:, None] + sy
+
+
+def _qcap(opacity: torch.Tensor) -> torch.Tensor:
+    """Per-row cap on ``_tile_qmin``: opac·exp(−qmin/2) ≥ αmin ⇔ qmin ≤
+    2(log opac − log αmin), with the same (1−1e-3) margin and f32 constant
+    as the JAX module."""
+    with sync_point("binning_alpha_min"):         # a pageable host copy
+        log_amin = torch.log(torch.tensor(ALPHA_MIN * (1.0 - 1e-3),
+                                          dtype=torch.float32,
+                                          device=opacity.device))
+    return 2.0 * (torch.where(opacity > 0.0,
+                              torch.log(torch.clamp(opacity, min=1e-30)),
+                              torch.full_like(opacity, -math.inf))
+                  - log_amin)
+
+
+def bin_scan_plain(mean2d: torch.Tensor, conic: torch.Tensor,
+                   radius: torch.Tensor, opacity: torch.Tensor,
+                   valid: torch.Tensor, tiles_x: int, tiles_y: int,
+                   scan: int):
+    """Plain PyTorch version of ``bin_scan`` (same arguments and result):
+    the [N, S] slot math, ``_tile_qmin`` and the keep test, then the
+    per-row sort of the kept tiles."""
+    dev = mean2d.device
+    i32 = torch.int32
+    with span("binning.scan"):
+        x0, y0, x1, y1 = tile_rect(mean2d, radius, tiles_x, tiles_y)
+        zero = torch.zeros_like(x0)
+        nx = torch.where(valid, x1 - x0, zero)
+        ny = torch.where(valid, y1 - y0, zero)
+        coverage = nx * ny                                   # [N]
+        covered = torch.clamp(coverage, max=scan)
+
+        tile_x, tile_y = slot_tiles(x0, y0, nx, scan)       # [N, S]
+        tile_id = tile_y * tiles_x + tile_x
+        slots = torch.arange(scan, dtype=i32, device=dev)
+        in_range = slots[None, :] < covered[:, None]
+        qmin = _tile_qmin(mean2d, conic, tile_x, tile_y)
+        keep = in_range & (qmin <= _qcap(opacity)[:, None])
+        del qmin, tile_x, tile_y, in_range
+        kept = torch.sum(keep, dim=1, dtype=i32)
+    with span("binning.row_sort"):
+        # Per-row compaction: surviving tiles first, ascending (a row's rect
+        # tiles are distinct, so this order is unique).
+        tile_id = torch.sort(torch.where(keep, tile_id,
+                                         torch.full_like(tile_id,
+                                                         TILE_SENTINEL)),
+                             dim=1).values
+    return kept, coverage, tile_id
+
+
+def bin_scan(mean2d: torch.Tensor, conic: torch.Tensor, radius: torch.Tensor,
+             opacity: torch.Tensor, valid: torch.Tensor, tiles_x: int,
+             tiles_y: int, scan: int):
+    """The binning's slot scan and per-row compaction.  For each of the N
+    rows (``mean2d`` [N, 2], ``conic`` [N, 3], ``radius`` and ``opacity``
+    [N] float32, ``valid`` [N] bool), the first ``scan`` tiles of its
+    ``tile_rect`` in row-major slot order are tested against the alpha
+    cull (``_tile_qmin`` ≤ ``_qcap``).  Returns int32 ``kept`` [N] (tiles
+    kept), ``coverage`` [N] (tiles of the rect, 0 where not valid) and
+    ``tile_id`` [N, scan]: each row's kept tile ids ascending, then
+    ``TILE_SENTINEL``.  Launches ``csrc/bin_scan.cu`` on CUDA tensors (the
+    cap stays this module's ``[N]`` expression); runs ``bin_scan_plain`` on
+    CPU tensors."""
+    dev = mean2d.device
+    n = mean2d.shape[0]
+    for name, x, dt, shape in (("mean2d", mean2d, torch.float32, (n, 2)),
+                               ("conic", conic, torch.float32, (n, 3)),
+                               ("radius", radius, torch.float32, (n,)),
+                               ("opacity", opacity, torch.float32, (n,)),
+                               ("valid", valid, torch.bool, (n,))):
+        if x.dtype != dt or tuple(x.shape) != shape or \
+                not x.is_contiguous() or x.device != dev:
+            raise ValueError(f"bin_scan: {name} must be a contiguous {dt} "
+                             f"tensor of shape {shape} on {dev}, got "
+                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    if scan < 1:
+        raise ValueError(f"bin_scan: scan must be positive, got {scan}")
+    if not mean2d.is_cuda:
+        if dev.type == "cpu":
+            return bin_scan_plain(mean2d, conic, radius, opacity, valid,
+                                  tiles_x, tiles_y, scan)
+        raise RuntimeError(f"bin_scan: no kernel for {dev}")
+    i32 = torch.int32
+    with span("binning.scan"):
+        qcap = _qcap(opacity)
+        kept = torch.empty(n, dtype=i32, device=dev)
+        coverage = torch.empty(n, dtype=i32, device=dev)
+        tile_id = torch.empty((n, scan), dtype=i32, device=dev)
+        native.launch("bin_scan", mean2d.data_ptr(), conic.data_ptr(),
+                      radius.data_ptr(), valid.data_ptr(), qcap.data_ptr(),
+                      n, tiles_x, tiles_y, scan, kept.data_ptr(),
+                      coverage.data_ptr(), tile_id.data_ptr())
+    return kept, coverage, tile_id
+
+
 def _tail_bucket(kept, tile_id, inv_rank, n, start, budget, width, t_total):
     """Pair keys/ranks for compacted tile slots [start, start+width) of up to
     ``budget`` gaussians with kept > start, nearest (lowest depth rank)
@@ -287,48 +404,9 @@ def _bin(proj, height, width, max_dup, tile_capacity, dup_tails,
 
     scan = max_dup * (dup_overscan or DUP_OVERSCAN)
     n = m
-    with span("binning.scan"):
-        x0, y0, x1, y1 = tile_rect(mean2d, radius, tiles_x, tiles_y)
-        zero = torch.zeros_like(x0)
-        nx = torch.where(valid, x1 - x0, zero)
-        ny = torch.where(valid, y1 - y0, zero)
-        coverage = nx * ny                                   # [N]
-        covered = torch.clamp(coverage, max=scan)
-
-        slots = torch.arange(scan, dtype=i32, device=dev)    # [S]
-        nx_safe = torch.clamp(nx, min=1)
-        # slots // nx through the reciprocal, exactly as the JAX module does
-        # (exact at these magnitudes; see its note).
-        inv_nx = 1.0 / nx_safe.to(torch.float32)
-        sy = torch.floor((slots[None, :].to(torch.float32) + 0.5)
-                         * inv_nx[:, None]).to(i32)          # [N, S]
-        sx = slots[None, :] - sy * nx_safe[:, None]
-        tile_x = x0[:, None] + sx
-        tile_y = y0[:, None] + sy
-        tile_id = tile_y * tiles_x + tile_x
-        in_range = slots[None, :] < covered[:, None]
-        qmin = _tile_qmin(mean2d, conic, tile_x, tile_y)
-        # opac·exp(−qmin/2) ≥ αmin ⇔ qmin ≤ 2(log opac − log αmin), with the
-        # same (1−1e-3) margin and f32 constant as the JAX module.
-        with sync_point("binning_alpha_min"):     # a pageable host copy
-            log_amin = torch.log(torch.tensor(ALPHA_MIN * (1.0 - 1e-3),
-                                              dtype=torch.float32,
-                                              device=dev))
-        qcap = 2.0 * (torch.where(opacity > 0.0,
-                                  torch.log(torch.clamp(opacity, min=1e-30)),
-                                  torch.full_like(opacity, -math.inf))
-                      - log_amin)
-        keep = in_range & (qmin <= qcap[:, None])
-        del qmin, sx, sy, tile_x, tile_y, in_range
-        kept = torch.sum(keep, dim=1, dtype=i32)
-    with span("binning.row_sort"):
-        # Per-row compaction: surviving tiles first, ascending (a row's rect
-        # tiles are distinct, so this order is unique).
-        tile_id = torch.sort(torch.where(keep, tile_id,
-                                         torch.full_like(tile_id,
-                                                         2 ** 31 - 1)),
-                             dim=1).values
-        del keep
+    kept, coverage, tile_id = bin_scan(
+        mean2d.contiguous(), conic.contiguous(), radius.contiguous(),
+        opacity.contiguous(), valid.contiguous(), tiles_x, tiles_y, scan)
     with span("binning.tails"):
         live = (torch.arange(max_dup, dtype=i32, device=dev)[None, :]
                 < torch.clamp(kept, max=max_dup)[:, None])
@@ -404,7 +482,7 @@ def _bin(proj, height, width, max_dup, tile_capacity, dup_tails,
 
     count("binning.rows", n)
     count("binning.slots", n * scan)
-    count("binning.covered", covered)
+    count("binning.covered", torch.clamp(coverage, max=scan))
     count("binning.kept", kept)
     count("binning.pairs", counts)
     return TileBins(order=order_out, rank=rank_out, gather=gather, mask=mask,

@@ -196,3 +196,69 @@ def test_slab_gather_checks_inputs():
     with pytest.raises(ValueError, match="counts"):
         tbin.slab_gather(vals, starts, torch.zeros(2, dtype=torch.int64),
                          128, 4, 10)
+
+
+@pytest.mark.parametrize("scan", [8, 64, 256])
+def test_kept_tile_ids_rise_with_the_slot(scan):
+    """``bin_scan``'s kernel compacts each row's kept tiles in slot order
+    and takes that for the per-row sort's order.  Its premise: on every
+    in-range slot (slot < min(coverage, scan)) the plain slot math gives a
+    tile inside the row's rect, and tile ids that strictly increase with
+    the slot, for random rects, clamped ones (off every edge of the grid,
+    NaN and infinite centres and radii) included; and the reciprocal floor
+    is the integer division for every rect width a 4096-tile grid has."""
+    rng = np.random.default_rng(scan)
+    n, tiles_x, tiles_y = 20000, 120, 68                  # 1920x1088
+    mean2d = np.stack([rng.uniform(-800, 2720, n),
+                       rng.uniform(-800, 1888, n)], 1).astype(np.float32)
+    radius = np.exp(rng.uniform(-2, 7.5, n)).astype(np.float32)
+    mean2d[:50, 0] = np.nan
+    mean2d[50:100, 1] = np.inf
+    radius[100:150] = np.inf
+    radius[150:200] = 0.0
+    valid = rng.random(n) < 0.9
+    x0, y0, x1, y1 = tbin.tile_rect(torch.tensor(mean2d),
+                                    torch.tensor(radius), tiles_x, tiles_y)
+    v = torch.tensor(valid)
+    nx = torch.where(v, x1 - x0, torch.zeros_like(x0))
+    ny = torch.where(v, y1 - y0, torch.zeros_like(y0))
+    covered = torch.clamp(nx * ny, max=scan)
+    tile_x, tile_y = tbin.slot_tiles(x0, y0, nx, scan)
+    tile_id = tile_y * tiles_x + tile_x
+    in_range = torch.arange(scan)[None, :] < covered[:, None]
+    inside = ((tile_x >= x0[:, None]) & (tile_x < x1[:, None])
+              & (tile_y >= y0[:, None]) & (tile_y < y1[:, None]))
+    assert bool(inside[in_range].all())
+    rises = tile_id[:, 1:] > tile_id[:, :-1]
+    assert bool(rises[in_range[:, 1:]].all())
+    # The draw reaches what the premise has to hold for: rects clamped at
+    # each edge, rows covering more than the scan, and wide rect rows.
+    assert int((x0 == 0).sum()) and int((x1 == tiles_x).sum())
+    assert int((y0 == 0).sum()) and int((y1 == tiles_y).sum())
+    assert int((nx * ny > scan).sum()) and int(nx.max()) == tiles_x
+    widths = torch.arange(1, 4097, dtype=torch.int32)
+    zeros = torch.zeros_like(widths)
+    sx, sy = tbin.slot_tiles(zeros, zeros, widths, scan)
+    slots = torch.arange(scan, dtype=torch.int32)[None, :]
+    assert torch.equal(sy, torch.div(slots, widths[:, None],
+                                     rounding_mode="floor"))
+    assert torch.equal(sx, slots % widths[:, None])
+
+
+def test_bin_scan_checks_inputs():
+    n = 4
+    good = dict(mean2d=torch.zeros(n, 2), conic=torch.ones(n, 3),
+                radius=torch.ones(n), opacity=torch.ones(n),
+                valid=torch.ones(n, dtype=torch.bool))
+    kept, coverage, tile_id = tbin.bin_scan(**good, tiles_x=4, tiles_y=3,
+                                            scan=8)
+    assert tile_id.shape == (n, 8) and tile_id.dtype == torch.int32
+    for name, bad in (("conic", torch.ones(n, 2)),
+                      ("radius", torch.ones(n, dtype=torch.float64)),
+                      ("valid", torch.ones(n)),
+                      ("mean2d", torch.zeros(2, n).t())):
+        with pytest.raises(ValueError, match=name):
+            tbin.bin_scan(**{**good, name: bad}, tiles_x=4, tiles_y=3,
+                          scan=8)
+    with pytest.raises(ValueError, match="scan"):
+        tbin.bin_scan(**good, tiles_x=4, tiles_y=3, scan=0)
