@@ -31,7 +31,7 @@ plain PyTorch version:
              ``rasterize(method="pallas")`` in the production exact config
              (K3) and a padded config (K1); every image is compared with the
              plain path on the same inputs, each view's ``bin_scan`` with
-             ``bin_scan_plain`` (exactly);
+             ``bin_scan_plain`` (exactly); ``project_fwd`` launched;
 5. hierarchy — a LOD hierarchy over the same rows, saved to ``.hier.npz``
              and loaded back, rendered per view at tau in {0, 3, 6, 15}
              through ``pixel_limit -> select_cut -> render_cut_compact``;
@@ -173,7 +173,10 @@ plain PyTorch version:
              K3, K4) at the same cut, ``results.json`` per arm, the
              report, a rerun that skips;
 25. kernels_street — K1-K5 timed at the shapes of phases 4, 8, 9 (and
-             ``bin_scan`` at phase 4's view 0, held exactly), and K3,
+             ``bin_scan`` at phase 4's view 0, held exactly; ``project_fwd``
+             and ``project_bwd`` on phase 4's rows and view 0, held against
+             the plain path as tests/test_torch_project_card.py holds them,
+             beside their byte bounds and the plain versions), and K3,
              K4 at those of phases 11, 12 and 14, K1 at phase 9's and 16's,
              K2 at phase 10's, K5 at phase 16's, and each kernel at the
              shapes of its first call in each of phases 18-24 (held
@@ -3990,6 +3993,117 @@ def tool_phases(dev, scene) -> dict:
     return out
 
 
+# ---- the projection pair at the street shape ------------------------------
+
+def project_kernels(rows, cam, launches_of) -> list:
+    """``project_fwd`` and ``project_bwd`` (``csrc/project.cu``) on the
+    street scene's rows at SH degree 3: held against the plain path as
+    ``tests/test_torch_project_card.py`` holds them (the forward's outputs
+    against ``project_gaussians_plain``; the backward against
+    ``project_backward_plain`` on well-conditioned rows, per leaf norm),
+    then timed: ``ms`` a bare launch's device time, ``wall_ms`` the wrapper
+    (the forward; the forward and its backward under autograd), beside the
+    bound by bytes (each input and output once) and the plain versions'
+    times.  Returns the two kernel entries."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_torch_project_card as card
+    from street_sparse_3dgs_tpu_torch import native
+    from street_sparse_3dgs_tpu_torch.ops import preprocess as pp
+    from street_sparse_3dgs_tpu_torch.profiling import (PEAK_BYTES_S,
+                                                        device_ms, event_ms)
+
+    names = card.COTANGENTS
+    means, scales, quats, opac, sh = rows
+    n, k = means.shape[0], sh.shape[1]
+    got = pp.project_gaussians(*rows, cam, 3)
+    want = pp.project_gaussians_plain(*rows, cam, 3)
+    worst = card.compare_forward(got, want, rows, cam, 3, 1.0, None,
+                                 "street")
+    leaves = [x.detach().clone().requires_grad_(True) for x in rows]
+    out = pp.project_gaussians(*leaves, cam, 3)
+    cots = card.random_cotangents(out, 7)
+    cots["depth"] = torch.where(out.valid, cots["depth"], 0.0)
+    grads = torch.autograd.grad([getattr(out, c) for c in names],
+                                leaves, [cots[c] for c in names])
+    plain = pp.project_backward_plain(
+        means, scales, quats, sh, cam, 3,
+        **{f"g_{c}": cots[c] for c in names})
+    ok = card.well_conditioned(rows, cam, 3, None)
+    grad_err = {name: float((x[ok] - y[ok]).norm() / y[ok].norm())
+                for name, x, y in zip(card.LEAVES, grads, plain)}
+    if max(grad_err.values()) > card.GRAD_NORM_RTOL:
+        raise AssertionError(f"project_bwd: off the plain version {grad_err}")
+
+    cam_t = pp._camera_tensors(cam, means.device)
+    ptrs = [t.data_ptr() for t in cam_t]
+    outs = [torch.empty_like(x) for x in got]
+    d = [torch.empty_like(x) for x in rows]
+    g = [cots[c] for c in names]
+
+    def fwd():
+        native.launch("project_fwd", means.data_ptr(), scales.data_ptr(),
+                      quats.data_ptr(), opac.data_ptr(), sh.data_ptr(), None,
+                      *ptrs, n, k, 3, cam.width, cam.height, 1.0,
+                      *(o.data_ptr() for o in outs))
+
+    def bwd():
+        native.launch("project_bwd", means.data_ptr(), scales.data_ptr(),
+                      quats.data_ptr(), sh.data_ptr(), None, *ptrs, n, k, 3,
+                      cam.width, cam.height, 1.0, *(x.data_ptr() for x in g),
+                      *(x.data_ptr() for x in d))
+
+    def kernel_pair():
+        o = pp.project_gaussians(*leaves, cam, 3)
+        torch.autograd.grad([getattr(o, c) for c in names],
+                            leaves, g)
+
+    def plain_pair():
+        o = pp.project_gaussians_plain(*leaves, cam, 3)
+        torch.autograd.grad([torch.where(torch.isfinite(getattr(o, c)),
+                                         getattr(o, c), 0.0)
+                             for c in names], leaves, g)
+
+    fwd_ms, bwd_ms = device_ms(fwd, 50), device_ms(bwd, 50)
+    fwd()
+    bwd()
+    if not all(torch.equal(a, b) for a, b in zip(outs, got)) or not all(
+            torch.equal(a.view(torch.int32), b.view(torch.int32))
+            for a, b in zip(d, grads)):
+        raise AssertionError("project: a bare launch differs from the "
+                             "wrapper's")
+    # Bytes a row: forward means, scales, quats, opacity and K SH
+    # coefficients in, the eight outputs (49 B) out; backward the same
+    # inputs but opacity, six cotangents (44 B) in, five gradients out.
+    fwd_bytes = n * (12 + 12 + 16 + 4 + 12 * k + 49)
+    bwd_bytes = n * (12 + 12 + 16 + 12 * k + 44 + 12 + 12 + 16 + 4 + 12 * k)
+    common = {"route": "cuda",
+              "source": "street_sparse_3dgs_tpu_torch/csrc/project.cu",
+              "replaces": "none (XLA's fusion of street_sparse_3dgs_tpu/ops/"
+                          "preprocess.project_gaussians and its VJP; the "
+                          "port's plain chain in PyTorch)",
+              "bound_by": "bytes", "library_ms": None,
+              "shapes": f"street view 0, {n} rows, K {k}, degree 3"}
+    return [
+        {"name": "project_fwd", **common, **launches_of("project_fwd"),
+         "tolerance": f"rtol {card.RTOL} on rows valid on both, beyond "
+                      f"{card.FP32_SLACK}x the plain path's own float32 "
+                      "error against float64",
+         "max_rel_err": worst, "ms": fwd_ms,
+         "wall_ms": event_ms(lambda: pp.project_gaussians(*rows, cam, 3), 50),
+         "plain_ms": event_ms(
+             lambda: pp.project_gaussians_plain(*rows, cam, 3), 5),
+         "bound_ms": fwd_bytes / PEAK_BYTES_S * 1e3},
+        {"name": "project_bwd", **common, **launches_of("project_bwd"),
+         "tolerance": "1e-4 per leaf norm on well-conditioned rows",
+         "grad_rel_err": grad_err, "ms": bwd_ms,
+         "wall_ms_with_fwd": event_ms(kernel_pair, 20),
+         "plain_ms": event_ms(lambda: pp.project_backward_plain(
+             means, scales, quats, sh, cam, 3,
+             **{f"g_{c}": cots[c] for c in names}), 3),
+         "plain_autograd_ms_with_fwd": event_ms(plain_pair, 3),
+         "bound_ms": bwd_bytes / PEAK_BYTES_S * 1e3}]
+
+
 def _meta(n: int):
     from street_sparse_3dgs_tpu_torch.models.gaussians import GaussianMeta
     return GaussianMeta(sh_degree=3, capacity=n)
@@ -4254,7 +4368,8 @@ def main() -> int:
             ms, out = timed_runs(lambda: rasterize(*rows, cam, 3, bg, cfg))
             renders.append((v, cname, ms, out))
     launches_render = dict(native.LAUNCHES)
-    for name in ("blend_padded", "blend_exact", "slab_gather", "bin_scan"):
+    for name in ("blend_padded", "blend_exact", "slab_gather", "bin_scan",
+                 "project_fwd"):
         if launches_render[name] == 0:
             raise AssertionError(f"render path never launched {name}")
 
@@ -4849,6 +4964,7 @@ def main() -> int:
     if kernels[-1]["max_abs_err"]:
         raise AssertionError("bin_scan: kernel differs from plain")
     del bs_args, bs_out, plain_out, qcap, kept_k, cov_k, tid_k
+    kernels += project_kernels(rows, scene.cameras[0], launches_of)
     # K1-K5 at the tools' shapes (phases 18-24): each phase's first call of
     # each kernel held against the plain version, timed and bounded.
     for phase, rec in tools_rec.items():

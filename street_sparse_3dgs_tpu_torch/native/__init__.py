@@ -2,7 +2,8 @@
 
 Each ``csrc/*.cu`` is compiled by ``nvcc`` into its own shared library
 with a plain C interface (one ``nvcc`` per source, all started together)
-and loaded with ``ctypes``.  The build runs at first use on a machine with
+and loaded with ``ctypes``.  A kernel's entry point is ``<name>_launch`` in
+``csrc/<name>.cu``, or in the source ``SOURCES`` names for it.  The build runs at first use on a machine with
 ``nvcc``; the library name carries a hash of every source and flag, so
 editing a kernel rebuilds it.  Libraries land in ``build/kernels/`` at the
 repository root, which ``.gitignore`` lists.
@@ -25,7 +26,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNELS = ("blend_padded", "blend_exact", "slab_gather", "blend_padded_bwd",
-           "blend_exact_bwd", "blend_exact_stub", "bin_scan")
+           "blend_exact_bwd", "blend_exact_stub", "bin_scan", "project_fwd",
+           "project_bwd")
+# Kernels whose entry point lives in a source of another name.
+SOURCES = {"project_fwd": "project", "project_bwd": "project"}
 # No --use_fast_math (expf/log1pf stay the accurate versions) and no FMA
 # contraction (-fmad=false): every product rounds on its own, as in the
 # plain PyTorch versions, so a slot whose alpha sits on the 1/255 skip
@@ -39,6 +43,7 @@ LAUNCHES = {name: 0 for name in KERNELS}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 _ARGTYPES = {
     # attrs, counts, bg, bg_per_tile, T, K, tiles_x, tile0, t_mod, out, stream
     "blend_padded": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
@@ -64,6 +69,17 @@ _ARGTYPES = {
     # mean2d, conic, radius, valid, qcap, N, tiles_x, tiles_y, scan, kept,
     # coverage, tile_id, stream
     "bin_scan": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    # means, scales, quats, opacities, sh, mask (or null), view, proj,
+    # campos, tan_fovx, tan_fovy, focal_x, focal_y, N, K, degree, width,
+    # height, scale_modifier, mean2d, depth, inv_depth, conic, radius,
+    # color, opacity, valid, stream
+    "project_fwd": [_P] * 13 + [_I] * 5 + [_F] + [_P] * 9,
+    # means, scales, quats, sh, mask (or null), view, proj, campos,
+    # tan_fovx, tan_fovy, focal_x, focal_y, N, K, degree, width, height,
+    # scale_modifier, the cotangents of mean2d, depth, inv_depth, conic,
+    # color and opacity (each or null), the gradients of means, scales,
+    # quats, opacities and sh (each or null), stream
+    "project_bwd": [_P] * 12 + [_I] * 5 + [_F] + [_P] * 12,
 }
 _fns: dict = {}
 
@@ -93,7 +109,8 @@ def _digest() -> str:
 
 
 def library_path(name: str) -> Path:
-    return BUILD_DIR / f"lib{name}-{_digest()}.so"
+    """The library of kernel ``name``'s source."""
+    return BUILD_DIR / f"lib{SOURCES.get(name, name)}-{_digest()}.so"
 
 
 def build() -> dict:
@@ -106,7 +123,7 @@ def build() -> dict:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
-    for name in KERNELS:
+    for name in dict.fromkeys(SOURCES.get(k, k) for k in KERNELS):
         out = library_path(name)
         if out.exists():
             continue
