@@ -2706,9 +2706,9 @@ def parallel_phase(dev, scene, street_pipe) -> dict:
     from street_sparse_3dgs_tpu_torch.data.toy import make_street_scene
     from street_sparse_3dgs_tpu_torch.ops import binning
     from street_sparse_3dgs_tpu_torch.ops.preprocess import project_gaussians
-    from street_sparse_3dgs_tpu_torch.ops.rasterize import rasterize
+    from street_sparse_3dgs_tpu_torch.ops.rasterize import (bin_kwargs,
+                                                           rasterize)
     from street_sparse_3dgs_tpu_torch.parallel.mesh import run_world
-    from street_sparse_3dgs_tpu_torch.parallel.tiles import bin_kwargs
     from street_sparse_3dgs_tpu_torch.train.step import (init_state,
                                                          make_train_step,
                                                          raster_config)

@@ -31,6 +31,27 @@ from ..profiling import count, span, sync_point
 from .structure import Cut
 
 
+def _lerp_parent(w: torch.Tensor, node, parent,
+                 finish=lambda x: x) -> tuple:
+    """The activated means, scales, quats, opacities and SHs (fields 0-4)
+    lerped toward the parent by the weight column ``w`` [n, 1] as ``w *
+    node(i) + (1 - w) * parent(i)``, the parent quaternion sign-aligned to
+    the node's first, each passed through ``finish`` as it is made.
+    ``node(i)`` and ``parent(i)`` return field i's rows; each is called
+    inside its lerp, so one field's gathers live at a time."""
+    shapes = ((-1, 1), (-1, 1), (-1, 1), (-1,), (-1, 1, 1))
+    out = [None] * 5
+    # The SH lerp, the largest, runs while the fewest outputs are held.
+    for i in (0, 1, 3, 4, 2):
+        wk = w.reshape(shapes[i])
+        if i == 2:
+            parent_q = align_sign(parent(i), node(i))
+            out[i] = finish(wk * node(i) + (1.0 - wk) * parent_q)
+        else:
+            out[i] = finish(wk * node(i) + (1.0 - wk) * parent(i))
+    return tuple(out)
+
+
 def blend_cut(params: GaussianParams, cut: Cut, n_nodes: int,
               skybox_count: int):
     """Lerp every tree row toward its parent by its cut weight.  Returns
@@ -45,18 +66,10 @@ def blend_cut(params: GaussianParams, cut: Cut, n_nodes: int,
     par = torch.cat([cut.parent.to(torch.int64),
                      torch.arange(n_nodes, total, device=dev)])
 
-    xyz = params.xyz
-    scales = torch.exp(params.log_scales)
-    opac = torch.abs(params.opacity_raw[:, 0])
-    sh = sh_coeffs(params)
-    quats = params.quats
-
-    xyz_b = w * xyz + (1.0 - w) * xyz[par]
-    scales_b = w * scales + (1.0 - w) * scales[par]
-    opac_b = w[:, 0] * opac + (1.0 - w[:, 0]) * opac[par]
-    sh_b = w[:, :, None] * sh + (1.0 - w[:, :, None]) * sh[par]
-    parents_q = align_sign(quats[par], quats)
-    quats_b = w * quats + (1.0 - w) * parents_q
+    rows = (params.xyz, torch.exp(params.log_scales), params.quats,
+            torch.abs(params.opacity_raw[:, 0]), sh_coeffs(params))
+    xyz_b, scales_b, quats_b, opac_b, sh_b = _lerp_parent(
+        w, rows.__getitem__, lambda i: rows[i][par])
 
     active = torch.cat([cut.selected,
                         torch.ones(pad, dtype=torch.bool, device=dev)])
@@ -164,24 +177,18 @@ def blend_cut_compact(params: GaussianParams, cut: Cut, n_nodes: int,
         return (r[:, 0:3], torch.exp(r[:, 3:6]), r[:, 6:10],
                 torch.abs(r[:, 10]), r[:, 11:].reshape(-1, k, 3))
 
-    xyz_i, scales_i, quats_i, opac_i, sh_i = fields(ri)
-    xyz_p, scales_p, quats_p, opac_p, sh_p = fields(rp)
-
     # Padding slots gather row 0; zero them so that their cotangents cannot
     # leak into row 0 through the gather's backward.
     def z(x):
         return torch.where(active.reshape((-1,) + (1,) * (x.dim() - 1)), x,
                            torch.zeros_like(x))
 
-    xyz_b = z(w * xyz_i + (1.0 - w) * xyz_p)
-    scales_b = z(w * scales_i + (1.0 - w) * scales_p)
-    opac_b = z(w[:, 0] * opac_i + (1.0 - w[:, 0]) * opac_p)
-    sh_b = z(w[:, :, None] * sh_i + (1.0 - w[:, :, None]) * sh_p)
-    parents_q = align_sign(quats_p, quats_i)
-    quats_b = z(w * quats_i + (1.0 - w) * parents_q)
+    node, parent = fields(ri), fields(rp)
+    xyz_b, scales_b, quats_b, opac_b, sh_b = _lerp_parent(
+        w, node.__getitem__, parent.__getitem__, z)
     # Zeroed quats are degenerate for the rotation math downstream; park the
     # padding slots at identity (a constant: no cotangent).
-    ident = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=quats_i.dtype,
+    ident = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=quats_b.dtype,
                          device=dev)
     quats_b = torch.where(active[:, None], quats_b, ident)
     return xyz_b, scales_b, quats_b, opac_b, sh_b, active, overflow
@@ -235,19 +242,11 @@ def compact_cut_params(h_params: GaussianParams, cut: Cut, n_nodes: int,
                                       device=dev)])[:, None]
         active = torch.arange(n_pad, device=dev) < n
 
-        xyz = h_params.xyz
-        scales = torch.exp(h_params.log_scales)
-        opac = torch.abs(h_params.opacity_raw[:, 0])
-        sh = sh_coeffs(h_params)
-        quats = h_params.quats
-
-        xyz_b = wj * xyz[gi] + (1 - wj) * xyz[gp]
-        scales_b = wj * scales[gi] + (1 - wj) * scales[gp]
-        opac_b = wj[:, 0] * opac[gi] + (1 - wj[:, 0]) * opac[gp]
-        sh_b = wj[:, :, None] * sh[gi] + (1 - wj[:, :, None]) * sh[gp]
-        parents_q = align_sign(quats[gp], quats[gi])
-        quats_b = wj * quats[gi] + (1 - wj) * parents_q
-        return xyz_b, scales_b, quats_b, opac_b, sh_b, active
+        rows = (h_params.xyz, torch.exp(h_params.log_scales),
+                h_params.quats, torch.abs(h_params.opacity_raw[:, 0]),
+                sh_coeffs(h_params))
+        return (*_lerp_parent(wj, lambda i: rows[i][gi],
+                              lambda i: rows[i][gp]), active)
 
 
 def render_cut_compact(h_params: GaussianParams, cut: Cut, n_nodes: int,

@@ -34,15 +34,18 @@ def init(capacity: int,
     return DensifyState(z(), z(), z())
 
 
-def add_stats(state: DensifyState, screen_grad: torch.Tensor,
-              radii: torch.Tensor, visible: torch.Tensor) -> DensifyState:
-    """Accumulate one view's stats (``screen_grad`` [C, 2] is the grad of
-    ``rasterize``'s ``mean2d_residual``)."""
-    norm = torch.linalg.vector_norm(screen_grad[:, :2], dim=-1)
-    return DensifyState(
+def add_stats(state, norm: torch.Tensor, radii: torch.Tensor,
+              visible: torch.Tensor, denom_add: torch.Tensor):
+    """``state`` (a ``DensifyState``, or a ``TrainState``, which has its
+    fields) with the stats accumulated: ``visible`` rows take the max of
+    ``norm`` (the screen-grad norm, from the grad of ``rasterize``'s
+    ``mean2d_residual``) and of ``radii``; ``denom`` adds ``denom_add``
+    (one view: ``visible`` as floats; a batch: each row's count of views
+    it was visible in)."""
+    return state._replace(
         grad_accum=torch.where(visible, torch.maximum(state.grad_accum, norm),
                                state.grad_accum),
-        denom=state.denom + visible.to(torch.float32),
+        denom=state.denom + denom_add,
         max_radii2d=torch.where(visible,
                                 torch.maximum(state.max_radii2d, radii),
                                 state.max_radii2d))

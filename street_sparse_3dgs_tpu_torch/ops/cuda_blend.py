@@ -971,6 +971,19 @@ def _to_image(flat: torch.Tensor, tiles_x: int, tiles_y: int, height: int,
     return img[:, :height, :width]
 
 
+def image_outputs(flat: torch.Tensor, tiles_x: int, tiles_y: int, h: int,
+                  w: int) -> dict:
+    """Packed rows [T, 8, 256] of one view (at least its ``tiles_x *
+    tiles_y`` tiles) -> render [3,H,W], depth [1,H,W], alpha [H,W]."""
+    t = tiles_x * tiles_y
+    if flat.shape[0] != t:        # a full slice still adds a backward node
+        flat = flat[:t]
+    return {"render": _to_image(flat[:, OR:OB + 1], tiles_x, tiles_y, h, w),
+            "depth": _to_image(flat[:, OI:OI + 1], tiles_x, tiles_y, h, w),
+            "alpha": _to_image(flat[:, OA:OA + 1], tiles_x, tiles_y, h,
+                               w)[0]}
+
+
 def blend_tiles_pallas(
     bins: TileBins,
     mean2d: torch.Tensor,     # [N, 2] original rows (permuted internally)
@@ -1011,9 +1024,5 @@ def blend_tiles_pallas(
         else:
             out = blend_padded(attrs, bins.counts.to(torch.int32).contiguous(),
                                bg2, tiles_x)
-        image = _to_image(out[:, OR:OB + 1], tiles_x, tiles_y, height, width)
-        invdepth = _to_image(out[:, OI:OI + 1], tiles_x, tiles_y, height,
-                             width)
-        alpha = _to_image(out[:, OA:OA + 1], tiles_x, tiles_y, height,
-                          width)[0]
-        return image, invdepth, alpha
+        res = image_outputs(out, tiles_x, tiles_y, height, width)
+        return res["render"], res["depth"], res["alpha"]

@@ -52,6 +52,25 @@ class RasterConfig:
     dup_tails: tuple = ()
 
 
+def bin_kwargs(config: RasterConfig, exact_extra: int = 0,
+               exact_shards: int = 1) -> dict:
+    """The binning knobs of ``config`` as ``bin_gaussians`` keywords; exact
+    mode with ``exact_extra`` windows over ``exact_shards`` segments."""
+    kw = dict(vis_capacity=config.vis_capacity,
+              dup_overscan=config.dup_overscan)
+    if config.dup_tails:
+        kw["dup_tails"] = config.dup_tails
+    if exact_extra:
+        kw.update(exact_extra=exact_extra, exact_shards=exact_shards,
+                  with_seg_pos=config.grad_reduce == "counts")
+    return kw
+
+
+def attr_dtype(config: RasterConfig) -> torch.dtype:
+    """The dtype the blend packs its attributes in."""
+    return torch.bfloat16 if config.attr_dtype == "bf16" else torch.float32
+
+
 def rasterize(
     means3d: torch.Tensor,        # [N, 3]
     scales: torch.Tensor,         # [N, 3] activated
@@ -98,20 +117,14 @@ def rasterize(
         if config.grad_reduce == "counts" and not config.exact_extra:
             raise ValueError("grad_reduce='counts' requires exact mode "
                              "(exact_extra > 0)")
-        kw = dict(vis_capacity=config.vis_capacity,
-                  exact_extra=config.exact_extra,
-                  with_seg_pos=config.grad_reduce == "counts",
-                  dup_overscan=config.dup_overscan)
-        if config.dup_tails:
-            kw["dup_tails"] = config.dup_tails
         bins = bin_gaussians(proj, h, w, config.max_dup,
-                             config.tile_capacity, **kw)
+                             config.tile_capacity,
+                             **bin_kwargs(config, config.exact_extra))
         image, invdepth, alpha = blend_tiles_pallas(
             bins, proj.mean2d, proj.conic, proj.color,
             proj.opacity, proj.inv_depth, h, w, bg,
             grad_sort=config.grad_sort, tile_batch=config.tile_batch,
-            attr_dtype=torch.bfloat16 if config.attr_dtype == "bf16"
-            else torch.float32)
+            attr_dtype=attr_dtype(config))
         out["dup_overflow"] = bins.dup_overflow
         out["tile_overflow"] = bins.tile_overflow
         out["vis_overflow"] = bins.vis_overflow

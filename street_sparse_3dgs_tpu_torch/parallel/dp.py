@@ -21,9 +21,9 @@ loss instead of the photometric one (``dp.py:78-97``).  Random draws are
 inputs: the step takes this rank's [b, 3] backgrounds (JAX folds the step
 into a key per view, ``dp.py:132-135``).
 
-The step reuses the serial step's schedules, per-view loss and grad
-masking (``train/step.py``); ``leaf_params``, ``render_args`` and
-``apply_update`` below are shared with ``tp.py`` and ``ring.py``.
+Everything but the reductions is the serial step's (``train/step.py``):
+the schedules, the per-view loss, the grad masking, the update and the
+densify statistics, as ``tp.py`` and ``ring.py`` take them too.
 """
 
 from __future__ import annotations
@@ -33,61 +33,15 @@ from typing import Sequence
 import torch
 
 from ..config import OptimizationConfig, PipelineConfig
-from ..models import adam
-from ..models.gaussians import (GaussianMeta, GaussianParams,
-                                activate_opacity, activate_scales, sh_coeffs)
+from ..models import densify
+from ..models.gaussians import GaussianMeta, GaussianParams
 from ..ops.rasterize import rasterize
 from ..train import losses
-from ..train.step import (CameraBatch, TrainState, mask_grads,
-                          raster_config, schedules, view_loss)
+from ..train.step import (CameraBatch, TrainState, grads_or_zeros,
+                          leaf_params, mask_grads, raster_config,
+                          render_args, schedules, update, view_loss)
 from .collectives import all_reduce_flat
 from .mesh import Mesh, data_shard, replicate_state
-
-
-def leaf_params(state: TrainState):
-    """The state's parameters and exposure as fresh leaves with grads."""
-    params = GaussianParams(*(p.detach().requires_grad_(True)
-                              for p in state.params))
-    exposure = state.exposure.detach().requires_grad_(True)
-    return params, exposure
-
-
-def render_args(params: GaussianParams, meta: GaussianMeta) -> tuple:
-    """The activated rows ``rasterize`` takes."""
-    return (params.xyz, activate_scales(params), params.quats,
-            activate_opacity(params, meta), sh_coeffs(params))
-
-
-def apply_update(state: TrainState, opt: OptimizationConfig,
-                 g_params: GaussianParams, g_exposure: torch.Tensor | None,
-                 xyz_lr: float, exp_lr: float, visible: torch.Tensor,
-                 norm: torch.Tensor, denom_add: torch.Tensor,
-                 radii: torch.Tensor, it: int) -> TrainState:
-    """The masked sparse Adam on rows with a nonzero opacity grad, the
-    exposure Adam (``g_exposure`` None: unchanged) and the densify
-    statistics (``visible`` rows take the max of ``norm`` and ``radii``;
-    ``denom`` adds ``denom_add``)."""
-    relevant = (g_params.opacity_raw[:, 0] != 0.0) & state.active
-    lrs = adam.ParamLrs.from_config(xyz_lr, opt.feature_lr, opt.opacity_lr,
-                                    opt.scaling_lr, opt.rotation_lr)
-    new_params, new_adam = adam.step(state.params, g_params,
-                                     state.adam_state, lrs, relevant)
-    if g_exposure is not None:
-        new_exposure, new_exp_adam = adam.dense_step(
-            state.exposure, g_exposure, state.exposure_adam, exp_lr)
-    else:
-        new_exposure, new_exp_adam = state.exposure, state.exposure_adam
-    return TrainState(
-        params=new_params, active=state.active, adam_state=new_adam,
-        exposure=new_exposure, exposure_adam=new_exp_adam,
-        grad_accum=torch.where(visible,
-                               torch.maximum(state.grad_accum, norm),
-                               state.grad_accum),
-        denom=state.denom + denom_add,
-        max_radii2d=torch.where(visible,
-                                torch.maximum(state.max_radii2d, radii),
-                                state.max_radii2d),
-        step=torch.tensor(it, dtype=torch.int32))
 
 
 def make_dp_train_step(
@@ -143,9 +97,7 @@ def make_dp_train_step(
             outs.append(out)
         loss = total / b_total
         inputs = (*params, exposure, *residuals)
-        grads = torch.autograd.grad(loss, inputs, allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g
-                 for x, g in zip(inputs, grads)]
+        grads = grads_or_zeros(loss, inputs)
 
         with torch.no_grad():
             vis = torch.stack([o["visibility"] for o in outs])
@@ -169,9 +121,11 @@ def make_dp_train_step(
             g_params = mask_grads(
                 meta, g_params, torch.arange(capacity, device=dev),
                 zero_scaling_grads_for_skybox)
-            new_state = apply_update(
+            new_state = update(
                 state, opt, g_params, g_exposure if use_trained_exp else None,
-                xyz_lr, exp_lr, visible, norm, denom_add, radius, it)
+                xyz_lr, exp_lr, it)
+            new_state = densify.add_stats(new_state, norm, radius, visible,
+                                          denom_add)
         aux = {"loss": loss_all[0], "n_visible": torch.sum(visible),
                "tile_overflow": over[0].to(torch.int64),
                "dup_overflow": over[1].to(torch.int64)}

@@ -34,20 +34,20 @@ import torch
 
 from ..config import OptimizationConfig, PipelineConfig
 from ..core.camera import CameraParams
+from ..models import densify
 from ..models.gaussians import GaussianMeta, GaussianParams
 from ..ops.binning import num_tiles, tile_rect
 from ..ops import cuda_blend
-from ..ops.cuda_blend import N_CH
+from ..ops.cuda_blend import N_CH, image_outputs
 from ..ops.preprocess import project_gaussians
 from ..ops.rasterize import RasterConfig
 from ..train import losses
-from ..train.step import (CameraBatch, TrainState, mask_grads,
-                          raster_config, schedules, view_loss)
+from ..train.step import (CameraBatch, TrainState, grads_or_zeros,
+                          leaf_params, mask_grads, raster_config,
+                          render_args, schedules, update, view_loss)
 from .collectives import (all_gather_slabs, all_reduce, ring_shift,
                           sum_grads)
-from .dp import apply_update, leaf_params, render_args
 from .mesh import Mesh
-from .tiles import image_outputs
 
 
 def rect_pairs(mean2d: torch.Tensor, radius: torch.Tensor,
@@ -244,20 +244,19 @@ def make_ring_train_step(
                             depth_w, additional_depth_maps_weight,
                             bool(depth_flag))
         inputs = (*params, exposure, res)
-        grads = torch.autograd.grad(loss, inputs, allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g
-                 for x, g in zip(inputs, grads)]
+        grads = grads_or_zeros(loss, inputs)
         with torch.no_grad():
             visible = out["visibility"] & state.active
             g_params = mask_grads(
                 meta, GaussianParams(*grads[:6]),
                 r * blk + torch.arange(blk, device=dev),
                 zero_scaling_grads_for_skybox)
-            new_state = apply_update(
+            new_state = update(
                 state, opt, g_params, grads[6] if use_trained_exp else None,
-                xyz_lr, exp_lr, visible,
-                torch.linalg.vector_norm(grads[7][:, :2], dim=-1),
-                visible.to(torch.float32), out["radii"], it)
+                xyz_lr, exp_lr, it)
+            norm = torch.linalg.vector_norm(grads[7][:, :2], dim=-1)
+            new_state = densify.add_stats(new_state, norm, out["radii"],
+                                          visible, visible.to(torch.float32))
             aux = {"loss": loss.detach(),
                    "n_visible": all_reduce(torch.sum(visible), "sum", group),
                    "tile_overflow": out["tile_overflow"],

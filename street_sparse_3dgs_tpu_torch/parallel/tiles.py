@@ -27,9 +27,13 @@ each rank its slab's part, so each rank's slot grads, ``slot_grads_to_rows``
 and the replicated projection's backward give PARTIAL grads of the inputs;
 ``sum_grads`` sums them over the tile axis.  Anything applied to the
 assembled image (the exposure affine, the loss) is replicated and is not
-summed.  Binning takes ``dup_overscan`` and ``dup_tails`` from the config
-as the serial ``rasterize`` does (JAX's tile-sharded path leaves them at
-their defaults; the two agree on a default config).
+summed.
+
+The binning settings (``ops.rasterize.bin_kwargs``, ``attr_dtype``) and the
+image assembly from the packed rows (``ops.cuda_blend.image_outputs``) are
+the serial path's, so binning takes ``dup_overscan`` and ``dup_tails``
+from the config as the serial ``rasterize`` does (JAX's tile-sharded path
+leaves them at their defaults; the two agree on a default config).
 """
 
 from __future__ import annotations
@@ -39,28 +43,11 @@ import torch
 from ..core.camera import CameraParams
 from ..ops.binning import bin_gaussians
 from ..ops import cuda_blend
-from ..ops.cuda_blend import OA, OB, OI, OR, _to_image
+from ..ops.cuda_blend import image_outputs
 from ..ops.preprocess import project_gaussians
-from ..ops.rasterize import RasterConfig
+from ..ops.rasterize import RasterConfig, attr_dtype, bin_kwargs
 from .collectives import all_gather_slabs, sum_grads
 from .mesh import Mesh
-
-
-def bin_kwargs(config: RasterConfig, exact_extra: int = 0,
-               exact_shards: int = 1) -> dict:
-    """Binning knobs of ``config`` (those the serial ``rasterize`` passes)."""
-    kw = dict(vis_capacity=config.vis_capacity,
-              dup_overscan=config.dup_overscan)
-    if config.dup_tails:
-        kw["dup_tails"] = config.dup_tails
-    if exact_extra:
-        kw.update(exact_extra=exact_extra, exact_shards=exact_shards,
-                  with_seg_pos=config.grad_reduce == "counts")
-    return kw
-
-
-def attr_dtype(config: RasterConfig):
-    return torch.bfloat16 if config.attr_dtype == "bf16" else torch.float32
 
 
 def padded_last_v(bins, t_pad: int) -> torch.Tensor:
@@ -82,16 +69,6 @@ def pad_tiles(x: torch.Tensor, rows: int, value=0) -> torch.Tensor:
     if extra == 0:
         return x
     return torch.cat([x, x.new_full((extra,) + tuple(x.shape[1:]), value)])
-
-
-def image_outputs(flat: torch.Tensor, tiles_x: int, tiles_y: int, h: int,
-                  w: int) -> dict:
-    """Packed rows [T, 8, 256] of one view -> render, depth, alpha."""
-    t = tiles_x * tiles_y
-    return {"render": _to_image(flat[:t, OR:OB + 1], tiles_x, tiles_y, h, w),
-            "depth": _to_image(flat[:t, OI:OI + 1], tiles_x, tiles_y, h, w),
-            "alpha": _to_image(flat[:t, OA:OA + 1], tiles_x, tiles_y, h,
-                               w)[0]}
 
 
 def rasterize_tile_sharded(

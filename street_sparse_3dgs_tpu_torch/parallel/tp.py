@@ -36,19 +36,21 @@ import torch
 
 from ..config import OptimizationConfig, PipelineConfig
 from ..core.camera import CameraParams
+from ..models import densify
 from ..models.gaussians import GaussianMeta, GaussianParams
 from ..ops.binning import bin_gaussians, num_tiles
 from ..ops import cuda_blend
 from ..ops.preprocess import project_gaussians
-from ..ops.rasterize import RasterConfig
+from ..ops.cuda_blend import image_outputs
+from ..ops.rasterize import RasterConfig, attr_dtype, bin_kwargs
 from ..train import losses
-from ..train.step import (CameraBatch, TrainState, _select, mask_grads,
-                          raster_config, schedules, view_loss)
+from ..train.step import (CameraBatch, TrainState, grads_or_zeros,
+                          leaf_params, mask_grads, raster_config,
+                          render_args, revert_on_overflow, schedules,
+                          update, view_loss)
 from .collectives import all_gather_slabs, sum_grads
-from .dp import apply_update, leaf_params, render_args
 from .mesh import Mesh, replicate_state
-from .tiles import (attr_dtype, bin_kwargs, image_outputs, pad_tiles,
-                    padded_last_v)
+from .tiles import pad_tiles, padded_last_v
 
 
 def rasterize_batch_tile_sharded(
@@ -220,9 +222,7 @@ def make_tile_sharded_train_step(
                                       flags[i])[0]
         loss = total / b
         inputs = (*params, exposure, res)
-        grads = torch.autograd.grad(loss, inputs, allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g
-                 for x, g in zip(inputs, grads)]
+        grads = grads_or_zeros(loss, inputs)
 
         with torch.no_grad():
             vis = out["visibility"]
@@ -232,24 +232,17 @@ def make_tile_sharded_train_step(
             g_params = mask_grads(meta, GaussianParams(*grads[:6]),
                                   torch.arange(capacity, device=dev),
                                   zero_scaling_grads_for_skybox)
-            new_state = apply_update(
+            new_state = update(
                 state, opt, g_params, grads[6] if use_trained_exp else None,
-                xyz_lr, exp_lr, visible, norm,
-                torch.sum(vis, dim=0).to(torch.float32),
-                torch.amax(out["radii"].detach(), dim=0), it)
+                xyz_lr, exp_lr, it)
+            new_state = densify.add_stats(
+                new_state, norm, torch.amax(out["radii"].detach(), dim=0),
+                visible, torch.sum(vis, dim=0).to(torch.float32))
             aux = {"loss": loss.detach(), "n_visible": torch.sum(visible),
                    "tile_overflow": out["tile_overflow"],
                    "dup_overflow": out["dup_overflow"]}
-            if cfg.grad_reduce == "counts" and cfg.exact_extra:
-                # The counts backward is sound only at tile_overflow == 0:
-                # an overflowing step keeps the old state (the counter
-                # still advances), as the serial step does.
-                ok = out["tile_overflow"] == 0
-                step_t = new_state.step
-                new_state = _select(ok, new_state._replace(step=None),
-                                    state._replace(step=None))
-                new_state = new_state._replace(step=step_t)
-                aux["update_skipped"] = (~ok).to(torch.int32)
+            new_state = revert_on_overflow(cfg, out["tile_overflow"], state,
+                                           new_state, aux)
         return new_state, aux
 
     return step_fn, lambda state: replicate_state(mesh, state)

@@ -6,17 +6,21 @@ features), the masked sparse Adam step on rows whose opacity grad is
 nonzero, the exposure Adam step, the scheduled learning rates, the
 densification statistics and the optional big-Gaussian clamp.
 
+The steps of ``parallel/`` call this module's rules on their reduced
+grads: ``leaf_params``, ``render_args``, ``grads_or_zeros``, ``update`` and
+``revert_on_overflow``; the densify statistics are ``densify.add_stats``.
+
 PyTorch runs eagerly, so the step is a Python callable (``TrainStep``)
 rather than a compiled program.  The step counter ``TrainState.step`` is a
 CPU scalar (the schedules and the SH warm-up read it for free), every other
 state tensor lives on the parameters' device, and the counts-mode revert
 selects with ``torch.where`` on the device.  The host still waits for the
-device at nine places a step on CUDA, each a ``profiling.sync_point``: the
-exposure row read and written through a 0-d device ``image_index``
+device at eight places a step on CUDA, each a ``profiling.sync_point``:
+the exposure row read and written through a 0-d device ``image_index``
 (``exposure_row``, ``exposure_grad``), and the small tensors copied from
-pageable host memory in the projection (``project_size``), binning
-(``binning_alpha_min``) and each of SSIM's five blurs (``ssim_window``).
-"""
+pageable host memory in binning (``binning_alpha_min``) and each of SSIM's
+five blurs (``ssim_window``).  The plain projection of the CPU path adds a
+ninth (``project_size``); the CUDA projection kernel has none."""
 
 from __future__ import annotations
 
@@ -153,6 +157,49 @@ def mask_grads(meta: GaussianMeta, g_params: GaussianParams,
     return g_params
 
 
+def leaf_params(state: TrainState):
+    """The state's parameters and exposure as fresh leaves with grads."""
+    params = GaussianParams(*(p.detach().requires_grad_(True)
+                              for p in state.params))
+    exposure = state.exposure.detach().requires_grad_(True)
+    return params, exposure
+
+
+def render_args(params: GaussianParams, meta: GaussianMeta) -> tuple:
+    """The activated rows ``rasterize`` takes."""
+    return (params.xyz, activate_scales(params), params.quats,
+            activate_opacity(params, meta), sh_coeffs(params))
+
+
+def grads_or_zeros(loss: torch.Tensor, inputs) -> list[torch.Tensor]:
+    """The grads of ``loss`` w.r.t. ``inputs``; zeros for an input the loss
+    does not reach."""
+    grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+    return [torch.zeros_like(x) if g is None else g
+            for x, g in zip(inputs, grads)]
+
+
+def update(state: TrainState, opt: OptimizationConfig,
+           g_params: GaussianParams, g_exposure: torch.Tensor | None,
+           xyz_lr: float, exp_lr: float, it: int) -> TrainState:
+    """The masked sparse Adam on rows with a nonzero opacity grad, then the
+    exposure Adam over the whole table (``g_exposure`` None: exposure
+    unchanged).  The densify statistics carry over; the step counter
+    becomes ``it``."""
+    relevant = (g_params.opacity_raw[:, 0] != 0.0) & state.active
+    lrs = adam.ParamLrs.from_config(xyz_lr, opt.feature_lr, opt.opacity_lr,
+                                    opt.scaling_lr, opt.rotation_lr)
+    params, adam_state = adam.step(state.params, g_params, state.adam_state,
+                                   lrs, relevant)
+    exposure, exposure_adam = state.exposure, state.exposure_adam
+    if g_exposure is not None:
+        exposure, exposure_adam = adam.dense_step(exposure, g_exposure,
+                                                  exposure_adam, exp_lr)
+    return state._replace(params=params, adam_state=adam_state,
+                          exposure=exposure, exposure_adam=exposure_adam,
+                          step=torch.tensor(it, dtype=torch.int32))
+
+
 def _select(ok: torch.Tensor, new, old):
     """``where(ok, new, old)`` over a (nested) NamedTuple of tensors;
     ``None`` leaves stay ``None``."""
@@ -161,6 +208,21 @@ def _select(ok: torch.Tensor, new, old):
     if isinstance(new, torch.Tensor):
         return torch.where(ok, new, old)
     return type(new)(*(_select(ok, a, b) for a, b in zip(new, old)))
+
+
+def revert_on_overflow(cfg: RasterConfig, tile_overflow: torch.Tensor,
+                       old: TrainState, new: TrainState,
+                       aux: dict) -> TrainState:
+    """In exact counts mode the backward is sound only at ``tile_overflow
+    == 0``: an overflowing step keeps the ``old`` state (the step counter
+    still advances to ``new``'s) and ``aux["update_skipped"]`` says so.
+    Other modes return ``new``."""
+    if not (cfg.grad_reduce == "counts" and cfg.exact_extra):
+        return new
+    ok = tile_overflow == 0
+    kept = _select(ok, new._replace(step=None), old._replace(step=None))
+    aux["update_skipped"] = (~ok).to(torch.int32)
+    return kept._replace(step=new.step)
 
 
 class TrainStep:
@@ -223,10 +285,8 @@ class TrainStep:
                 bg: torch.Tensor):
         """(loss, image, raster outputs) of one view."""
         with span("train.forward"):
-            out = rasterize(params.xyz, activate_scales(params), params.quats,
-                            activate_opacity(params, self.meta),
-                            sh_coeffs(params), batch.camera, active_sh, bg,
-                            self.cfg, active_mask=active,
+            out = rasterize(*render_args(params, self.meta), batch.camera,
+                            active_sh, bg, self.cfg, active_mask=active,
                             mean2d_residual=mean2d_res)
         with span("train.loss"):
             loss, image = view_loss(
@@ -238,8 +298,7 @@ class TrainStep:
     def value_and_grad(self, state: TrainState, batch: CameraBatch,
                        active_sh: int, depth_w: float, bg: torch.Tensor):
         """(loss, image, out, grads of params, exposure row, screen)."""
-        params = GaussianParams(*(p.detach().requires_grad_(True)
-                                  for p in state.params))
+        params, _ = leaf_params(state)
         # A 0-d index tensor is read to the host (``.item()``).
         with sync_point("exposure_row"):
             exposure_row = state.exposure[batch.image_index].detach() \
@@ -252,9 +311,7 @@ class TrainStep:
                                         depth_w, bg)
         inputs = (*params, exposure_row, mean2d_res)
         with span("train.backward"):
-            grads = torch.autograd.grad(loss, inputs, allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g
-                 for x, g in zip(inputs, grads)]
+            grads = grads_or_zeros(loss, inputs)
         return (loss.detach(), image.detach(), out,
                 GaussianParams(*grads[:6]), grads[6], grads[7])
 
@@ -286,58 +343,30 @@ class TrainStep:
                     features_dc=torch.zeros_like(g_params.features_dc),
                     features_rest=torch.zeros_like(g_params.features_rest))
 
-            # Sparse Adam on rows with a nonzero opacity grad.
-            relevant = (g_params.opacity_raw[:, 0] != 0.0) & state.active
-            opt = self.opt
-            lrs = adam.ParamLrs.from_config(xyz_lr, opt.feature_lr,
-                                            opt.opacity_lr, opt.scaling_lr,
-                                            opt.rotation_lr)
-            new_params, new_adam = adam.step(state.params, g_params,
-                                             state.adam_state, lrs, relevant)
-
-            # Exposure Adam, dense over the whole table.
+            g_exp = None
             if self.use_exp:
                 g_exp = torch.zeros_like(state.exposure)
                 with sync_point("exposure_grad"):
                     g_exp[batch.image_index] = g_exposure_row
-                new_exposure, new_exp_adam = adam.dense_step(
-                    state.exposure, g_exp, state.exposure_adam, exp_lr)
-            else:
-                new_exposure, new_exp_adam = (state.exposure,
-                                              state.exposure_adam)
+            new_state = update(state, self.opt, g_params, g_exp, xyz_lr,
+                               exp_lr, it)
 
         with torch.no_grad(), span("train.stats"):
-            # Densification statistics.
             visible = out["visibility"] & state.active
-            stats = densify.add_stats(
-                densify.DensifyState(state.grad_accum, state.denom,
-                                     state.max_radii2d),
-                g_screen, out["radii"].detach(), visible)
-
+            norm = torch.linalg.vector_norm(g_screen[:, :2], dim=-1)
+            new_state = densify.add_stats(new_state, norm,
+                                          out["radii"].detach(), visible,
+                                          visible.to(torch.float32))
             if self.clamp_extent is not None:
-                new_params = clamp_big_gaussians(
-                    new_params, meta, self.clamp_extent, self.clamp_fraction,
-                    state.active)
-
-            step_t = torch.tensor(it, dtype=torch.int32)
-            new_state = TrainState(
-                params=new_params, active=state.active, adam_state=new_adam,
-                exposure=new_exposure, exposure_adam=new_exp_adam,
-                grad_accum=stats.grad_accum, denom=stats.denom,
-                max_radii2d=stats.max_radii2d, step=step_t)
+                new_state = new_state._replace(params=clamp_big_gaussians(
+                    new_state.params, meta, self.clamp_extent,
+                    self.clamp_fraction, state.active))
             aux = {"loss": loss, "image": image, "bg": bg,
                    "n_visible": torch.sum(visible),
                    "dup_overflow": out["dup_overflow"],
                    "tile_overflow": out["tile_overflow"]}
-            if self.cfg.grad_reduce == "counts" and self.cfg.exact_extra:
-                # The counts backward is sound only at tile_overflow == 0:
-                # an overflowing step keeps the old state (the step counter
-                # still advances) and reports update_skipped.
-                ok = out["tile_overflow"] == 0
-                new_state = _select(ok, new_state._replace(step=None),
-                                    state._replace(step=None))
-                new_state = new_state._replace(step=step_t)
-                aux["update_skipped"] = (~ok).to(torch.int32)
+            new_state = revert_on_overflow(self.cfg, out["tile_overflow"],
+                                           state, new_state, aux)
         return new_state, aux
 
 

@@ -4,7 +4,8 @@ tile-sharded padded and exact renders and grads and the (data x tile)
 steps, padded and exact counts, each held against the JAX parallel
 function on the 8-device virtual CPU mesh (Pallas in interpret mode) on
 the same numpy inputs and JAX's background draws, at
-``tests/test_parallel.py``'s sizes; and the port's dry run at world 2.
+``tests/test_parallel.py``'s sizes; the exact counts step's revert on a
+forced overflow; and the port's dry run at world 2.
 
 The port's side runs in one spawned ``gloo`` world of 4 ranks on the CPU
 (``tests/torch_parallel_ranks.py``): the DP step on a (4 x 1) mesh, the
@@ -180,6 +181,30 @@ def test_tp_step_matches_jax(port, setup, key):
     else:
         assert not np.allclose(got["xyz_flags_off"],
                                got["state"]["params"]["xyz"])
+
+
+def test_tp_counts_revert_on_forced_overflow(port):
+    """The (data x tile) exact counts step with splats 4x larger and a
+    one-window budget overflows, as ``tests/test_torch_train.py`` forces
+    the serial step to: every rank keeps the old state bit for bit,
+    advances the step counter and reports update_skipped."""
+    def leaves(tree, path=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, path + k + ".")
+            elif k != "step" or path:
+                yield path + k, v
+
+    for r in port:
+        got = r["tp_overflow"]
+        assert got["aux"]["tile_overflow"] > 0
+        assert got["aux"]["update_skipped"] == 1
+        assert int(got["state"]["step"]) == int(got["old"]["step"]) + 1
+        old = dict(leaves(got["old"]))
+        new = dict(leaves(got["state"]))
+        assert old.keys() == new.keys()
+        for k in old:
+            np.testing.assert_array_equal(new[k], old[k], err_msg=k)
 
 
 def test_dryrun_world_2(tmp_path):

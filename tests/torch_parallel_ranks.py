@@ -7,6 +7,7 @@ numpy results for the test to hold against the JAX functions."""
 from __future__ import annotations
 
 import dataclasses
+import math
 import pickle
 
 import torch
@@ -161,7 +162,8 @@ def tile_and_ring_cases(rank, world, path):
 def step_cases(rank, world, path):
     """The DP step (world x 1, one view a rank), the batch tile-sharded
     padded and exact renders and grads (2 x world/2) and the tp steps,
-    padded and exact counts (2 x world/2), on JAX's inputs."""
+    padded and exact counts (2 x world/2), on JAX's inputs; and the exact
+    counts tp step on a batch forced to overflow."""
     inp = load(path)
     rows, cams = rows_of(inp), cams_of(inp)
     meta = GaussianMeta(**inp["meta"])
@@ -207,4 +209,17 @@ def step_cases(rank, world, path):
             off, _ = step(replicate(state0), batch, bgs, 3,
                           [False] * len(batch))
             res[name]["xyz_flags_off"] = np_(off.params.xyz)
+
+    # Splats 4x larger and a one-window budget (rounded up to a multiple of
+    # the ranks): the exact counts step overflows and must revert.
+    pipe = tcfg.PipelineConfig(tile_capacity=128, max_dup=16,
+                               raster_method="pallas", exact_extra=1,
+                               grad_reduce="counts")
+    step, replicate = make_tile_sharded_train_step(meta, opt, pipe, 1.0, mesh)
+    big = replicate(state0._replace(params=state0.params._replace(
+        log_scales=state0.params.log_scales + math.log(4.0))))
+    new, aux = step(big, batch, bgs, 3, flags)
+    res["tp_overflow"] = {"old": state_np(big), "state": state_np(new),
+                          "aux": {k: int(v) for k, v in aux.items()
+                                  if k != "loss"}}
     return res
